@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the per-frame monocular tracking step
-(``rumi_slam_tpu_torch.step``), on the card at the full ``Config()`` size
-(640x480, 8 pyramid levels, max_pt 16384) in five phases, each of which
-raises on failure:
+Drives the port's main paths on the card at the full ``Config()`` size
+(640x480, 8 pyramid levels, 1024 features, max_kf 256, max_pt 16384): the
+per-frame monocular tracking step (``rumi_slam_tpu_torch.step``) and the
+monocular SLAM facade (``rumi_slam_tpu_torch.system.SlamSystem``), in seven
+phases, each of which raises on failure:
 
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: ``csrc/fused_match.cu`` with nvcc into ``build/``;
@@ -21,7 +22,18 @@ raises on failure:
    0's depth, tracked with a constant-velocity prediction; on every frame
    the kernel path on the card and the plain path on the CPU must agree,
    and the median inliers must reach the floor measured with the JAX
-   package on the same drive.
+   package on the same drive;
+6. SLAM drive: ``SlamSystem.track_monocular`` over 60 frames of
+   ``SyntheticSequence(seed=4)`` rendered on the card with
+   ``K = cfg.intrinsics()``, loop closing off, synchronous mapping: the
+   state of each frame, the stats, the per-stage ``StageTimer`` times, the
+   kernel's launches and the ATE; the OK share and the ATE must meet the
+   bounds from the JAX package's run of the same drive, and the kernel must
+   launch at least once per frame tracked in the OK state (the ``track``
+   stage; the initialising frame returns OK without being tracked);
+7. overlapped mapping: ``tiny_config()`` with the mapping worker thread over
+   the 45-frame verify drive (seed 4, patch 3, 320x240): at least one worker
+   result adopted, no worker error, OK share > 0.6, ATE < 0.15 m.
 
 Prints one JSON object per result line, the kernels' summary and the card's
 ``nvidia-smi`` name and power limit on lines before the last, and as the
@@ -46,6 +58,13 @@ import numpy as np
 INLIER_FLOOR = 203
 POSE_ATOL = 1e-4       # kernel path (card) vs plain path (CPU), as the CPU parity tests
 TIMING_REPS = 30
+
+# The JAX package on the phase-6 drive (CPU, `JAX_PLATFORMS=cpu PYTHONPATH=.
+# python tests/torch_system_drive.py`): 59 of 60 frames OK, 21 keyframes,
+# frame-trajectory ATE 0.005328 m.  Phase 6 holds the port to an OK share of
+# at least this less 0.05 and an ATE of at most 1.5 x this + 0.01 m.
+JAX_DRIVE_OK_SHARE = 59 / 60
+JAX_DRIVE_ATE_M = 0.005328
 
 
 def emit(**kw):
@@ -261,6 +280,102 @@ def phase_tracked_sequence():
     return med
 
 
+def slam_drive(cfg, seq, device):
+    """``SlamSystem.track_monocular`` over ``seq``: (system, states, ATE)."""
+    import torch
+
+    from rumi_slam_tpu_torch.evaluation import ate
+    from rumi_slam_tpu_torch.system import SlamSystem
+
+    slam = SlamSystem(cfg, device=device)
+    states = [slam.track_monocular(*seq.frame(i)).name for i in range(len(seq))]
+    slam.sync_mapping()
+    times, poses = slam.trajectory_of_map()
+    if not np.isfinite(poses).all():
+        raise RuntimeError("non-finite pose in the trajectory")
+    gt = torch.stack(seq.poses_gt).cpu().numpy()
+    return slam, states, ate.evaluate_trajectory(times, poses, seq.times, gt)
+
+
+def tracked_in_ok(slam):
+    """Frames that went through ``_track_ok`` (its ``track`` timer stage)."""
+    return len(slam.timer.samples.get("track", []))
+
+
+def phase_slam_drive():
+    import dataclasses
+
+    from rumi_slam_tpu_torch.config import Config
+    from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, loop_closing=False, overlapped=False))
+    c = cfg.camera
+    seq = SyntheticSequence(n_frames=60, width=c.width, height=c.height,
+                            K=cfg.intrinsics("cuda"), seed=4, device="cuda")
+    # the main path: the launch counter starts at 0 here
+    fm.fused_match.launches = 0
+    t0 = time.perf_counter()
+    slam, states, m = slam_drive(cfg, seq, "cuda")
+    wall = time.perf_counter() - t0
+    launches = fm.fused_match.launches
+    ok = states.count("OK")
+    tracked = tracked_in_ok(slam)
+    r = dict(frames=len(states), ok_frames=ok, ok_share=ok / len(states),
+             tracked_in_ok=tracked, n_kf=slam.stats["n_kf"], ate_m=m["ate"],
+             n_matched=m["n_matched"], launches=launches, wall_s=wall, stats=slam.stats,
+             states=states,
+             stage_ms=slam.timer.stats(),
+             bounds=dict(ok_share_min=JAX_DRIVE_OK_SHARE - 0.05,
+                         ate_max_m=1.5 * JAX_DRIVE_ATE_M + 0.01))
+    emit(phase="slam_drive", **r)
+    if slam.stats["n_kf"] < 2 or "OK" not in states:
+        raise RuntimeError("the SLAM drive did not initialise")
+    if r["ok_share"] < r["bounds"]["ok_share_min"]:
+        raise RuntimeError(f"OK share {r['ok_share']} below {r['bounds']['ok_share_min']}")
+    if not m["ate"] <= r["bounds"]["ate_max_m"]:
+        raise RuntimeError(f"ATE {m['ate']} m above {r['bounds']['ate_max_m']} m")
+    if launches < tracked:
+        raise RuntimeError(f"{launches} kernel launches for {tracked} frames tracked in OK")
+    return r
+
+
+def phase_overlapped_mapping():
+    import dataclasses
+
+    from rumi_slam_tpu_torch.config import tiny_config
+    from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, overlapped=True, loop_closing=False))
+    seq = SyntheticSequence(n_frames=45, width=320, height=240, n_points=1500, seed=4,
+                            patch=3, device="cuda")
+    fm.fused_match.launches = 0
+    t0 = time.perf_counter()
+    slam, states, m = slam_drive(cfg, seq, "cuda")
+    wall = time.perf_counter() - t0
+    slam.mapper.shutdown()
+    ok = states.count("OK")
+    adopted = slam.stats.get("n_adopted", 0)
+    r = dict(frames=len(states), ok_frames=ok, ok_share=ok / len(states),
+             tracked_in_ok=tracked_in_ok(slam), n_kf=slam.stats["n_kf"], adopted=adopted,
+             ate_m=m["ate"], launches=fm.fused_match.launches, wall_s=wall,
+             stats=slam.stats, stage_ms=slam.timer.stats())
+    emit(phase="overlapped_mapping", **r)
+    if adopted < 1:
+        raise RuntimeError("no mapping-worker result was adopted")
+    if not r["ok_share"] > 0.6 or not m["ate"] < 0.15:
+        raise RuntimeError(f"overlapped drive: OK share {r['ok_share']}, ATE {m['ate']} m")
+    if r["launches"] < r["tracked_in_ok"]:
+        raise RuntimeError(f"{r['launches']} kernel launches for {r['tracked_in_ok']} "
+                           "frames tracked in OK")
+    return r
+
+
 def main():
     import torch
 
@@ -274,6 +389,8 @@ def main():
     kern = phase_kernel()
     main_path = phase_main_path()
     phase_tracked_sequence()
+    drive = phase_slam_drive()
+    overlapped = phase_overlapped_mapping()
 
     bench = kern[0]
     emit(kernels=[{
@@ -281,7 +398,10 @@ def main():
         "route": "cuda",
         "source": "rumi_slam_tpu_torch/csrc/fused_match.cu",
         "replaces": "rumi_slam_tpu/ops/pallas_matcher.py:35",
-        "launches": sum(r["launches"] for r in main_path.values()),
+        "launches": drive["launches"],
+        "launches_by_path": {"tracking_step": sum(r["launches"] for r in main_path.values()),
+                             "slam_drive": drive["launches"],
+                             "overlapped_mapping": overlapped["launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in kern),
         "ms": bench["kernel_ms"],
         "plain_ms": bench["plain_ms"],

@@ -2,7 +2,10 @@
 
 The JAX package's ``config.py`` is JAX-free itself, but importing it runs
 ``rumi_slam_tpu/__init__.py``, which imports JAX; so the port carries its own
-copy.  Only ``Config.intrinsics`` differs: it returns a torch tensor.
+copy.  Two things differ: ``Config.intrinsics`` returns a torch tensor, and
+``tiny_config`` turns loop closing off, because the port has no loop closing
+yet (ROADMAP.md queue 1, item 11) and ``SlamSystem`` refuses
+``loop_closing=True``.
 """
 
 from __future__ import annotations
@@ -136,12 +139,12 @@ class Config:
 
 
 def tiny_config(**over) -> Config:
-    """Small capacities for tests."""
+    """Small capacities for tests; loop closing off (see the module docstring)."""
     base = Config(
         camera=CameraConfig(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5),
         orb=ORBConfig(n_features=256, n_levels=3),
         mapping=MapConfig(max_kf=64, max_pt=4096, local_window=5,
-                          overlapped=False),
+                          overlapped=False, loop_closing=False),
         tracking=TrackConfig(min_track_inliers=12, min_localmap_inliers=20,
                              new_map_min_kf=4, new_map_min_duration_s=0.3),
         sampler=SamplerConfig(n_track_last=10, n_new_track_first=5,

@@ -1,5 +1,5 @@
 """Pinhole camera model: projection, unprojection, analytic Jacobians (port of
-``rumi_slam_tpu/geometry/camera.py``; the stereo residual is not ported yet).
+``rumi_slam_tpu/geometry/camera.py``).
 
 Intrinsics are a flat ``[4]`` tensor ``(fx, fy, cx, cy)``; all functions
 broadcast over leading batch axes.
@@ -74,3 +74,27 @@ def reproj_residual_and_jacobians(K, T_cw, X_w, uv_obs):
     R = lie.quat_to_matrix(T_cw[..., :4])
     J_point = torch.einsum("...ij,...jk->...ik", Jp, R)
     return r, J_pose, J_point, x_cam[..., 2]
+
+
+def reproj_residual_and_jacobians_stereo(K, bf, T_cw, X_w, uv_obs, ur_obs):
+    """Stereo (or RGB-D virtual-right) residual r = [u - û, v - v̂, u_r - û_r]
+    with û_r = û - bf / ẑ (bf = fx * baseline).  Rows with ``ur_obs`` < 0 are
+    mono observations; the caller masks their third row.
+
+    Returns (r [..., 3], J_pose [..., 3, 6], J_point [..., 3, 3], depth [...]).
+    """
+    x_cam = lie.se3_apply(T_cw, X_w)
+    z = x_cam[..., 2]
+    zi = _inv_depth(z)
+    uv_hat = project(K, x_cam)
+    ur_hat = uv_hat[..., 0] - bf * zi
+    r = torch.cat([uv_hat - uv_obs, (ur_hat - ur_obs)[..., None]], dim=-1)
+    Jp2 = project_jacobian_point(K, x_cam)
+    e_z = torch.tensor([0.0, 0.0, 1.0], dtype=x_cam.dtype, device=x_cam.device)
+    row_ur = Jp2[..., 0, :] + (bf * zi * zi)[..., None] * e_z
+    Jp = torch.cat([Jp2, row_ur[..., None, :]], dim=-2)
+    J_omega = -torch.einsum("...ij,...jk->...ik", Jp, lie.hat(x_cam))
+    J_pose = torch.cat([J_omega, Jp], dim=-1)
+    R = lie.quat_to_matrix(T_cw[..., :4])
+    J_point = torch.einsum("...ij,...jk->...ik", Jp, R)
+    return r, J_pose, J_point, z

@@ -1,11 +1,13 @@
-"""SO(3) and SE(3) as plain tensor functions (port of the SO(3)/SE(3) half of
-``rumi_slam_tpu/geometry/lie.py``; Sim(3) is not ported yet).
+"""SO(3), SE(3) and Sim(3) as plain tensor functions (port of
+``rumi_slam_tpu/geometry/lie.py``).
 
 Storage conventions are the JAX package's:
 
 * quaternion ``q``: ``[..., 4]`` in (w, x, y, z) Hamilton convention, unit norm.
 * SE(3) ``T``:      ``[..., 7]`` = concat(q, t).  ``T @ x = R x + t``.
-* tangents: SO(3) ``[..., 3]`` (omega), SE(3) ``[..., 6]`` = (omega, v).
+* Sim(3) ``S``:     ``[..., 8]`` = concat(q, t, log_s).  ``S @ x = s R x + t``.
+* tangents: SO(3) ``[..., 3]`` (omega), SE(3) ``[..., 6]`` = (omega, v),
+  Sim(3) ``[..., 7]`` = (omega, v, sigma).
 
 Every function works on the trailing axes and broadcasts over leading ones.
 Poses follow the ``Tcw`` convention (world -> camera) unless a name says
@@ -233,3 +235,108 @@ def se3_from_matrix(M):
 def se3_retract(T, tau):
     """Left-multiplicative update exp(tau) * T (the optimizers' LM update)."""
     return se3_compose(se3_exp(tau), T)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
+
+def sim3_identity(dtype=torch.float32, device="cpu"):
+    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0, 0.0], dtype=dtype, device=device)
+
+
+def sim3_make(q, t, scale):
+    """Build from rotation quat, translation, *linear* scale."""
+    scale = torch.as_tensor(scale, dtype=q.dtype, device=q.device)
+    return torch.cat([q, t, torch.log(scale)[..., None]], dim=-1)
+
+
+def sim3_scale(S):
+    return torch.exp(S[..., 7])
+
+
+def sim3_apply(S, x):
+    return sim3_scale(S)[..., None] * quat_rotate(S[..., :4], x) + S[..., 4:7]
+
+
+def sim3_compose(A, B):
+    """(A*B) @ x = A @ (B @ x)."""
+    q = quat_normalize(quat_mul(A[..., :4], B[..., :4]))
+    t = sim3_scale(A)[..., None] * quat_rotate(A[..., :4], B[..., 4:7]) + A[..., 4:7]
+    log_s = A[..., 7] + B[..., 7]
+    return torch.cat([q, t, log_s[..., None]], dim=-1)
+
+
+def sim3_inverse(S):
+    qi = quat_conj(S[..., :4])
+    inv_s = torch.exp(-S[..., 7])
+    t = -inv_s[..., None] * quat_rotate(qi, S[..., 4:7])
+    return torch.cat([qi, t, -S[..., 7:8]], dim=-1)
+
+
+def sim3_from_se3(T, scale=1.0):
+    log_s = torch.log(torch.full(T.shape[:-1] + (1,), scale, dtype=T.dtype, device=T.device))
+    return torch.cat([T, log_s], dim=-1)
+
+
+def sim3_to_se3(S):
+    """Drop the scale (keep rotation+translation)."""
+    return S[..., :7]
+
+
+def sim3_exp(tau):
+    """Tangent [..., 7] = (omega, v, sigma) -> Sim(3) [..., 8], the closed
+    form with the scale terms of the W matrix and their Taylor limits."""
+    omega, v, sigma = tau[..., :3], tau[..., 3:6], tau[..., 6]
+    q = so3_exp(omega)
+    theta = _safe_norm(omega)
+    s = torch.exp(sigma)
+
+    W = hat(omega)
+    W2 = W @ W
+    eye = torch.eye(3, dtype=tau.dtype, device=tau.device).expand(W.shape)
+
+    th2 = theta * theta
+    sig2 = sigma * sigma
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta < 1e-5
+
+    A = torch.where(small_sig, 1.0 + sigma / 2.0 + sig2 / 6.0,
+                    (s - 1.0) / torch.where(small_sig, torch.ones_like(sigma), sigma))
+    denom = (sig2 + th2) * torch.clamp_min(theta, _EPS)
+    sin_th, cos_th = torch.sin(theta), torch.cos(theta)
+    a_ = s * sin_th
+    b_ = s * cos_th
+    B_gen = (a_ * sigma + (1.0 - b_) * theta) / torch.clamp_min(denom, _EPS)
+    C_gen = (A - ((b_ - 1.0) * sigma + a_ * theta) / torch.clamp_min(sig2 + th2, _EPS)) \
+        / torch.clamp_min(th2, _EPS)
+    B_sig0 = torch.where(small_th, 0.5 - th2 / 24.0, (1.0 - cos_th) / torch.clamp_min(th2, _EPS))
+    C_sig0 = torch.where(small_th, 1.0 / 6.0 - th2 / 120.0,
+                         (theta - sin_th) / torch.clamp_min(th2 * theta, _EPS))
+    B_th0 = torch.where(small_sig, 0.5 + sigma / 6.0,
+                        ((sigma - 1.0) * s + 1.0) / torch.clamp_min(sig2, _EPS))
+    C_th0 = torch.where(small_sig, 1.0 / 6.0 + sigma / 24.0,
+                        (s * (0.5 * sig2 - sigma + 1.0) - 1.0) / torch.clamp_min(sig2 * sigma, _EPS))
+    B = torch.where(small_th, B_th0, torch.where(small_sig, B_sig0, B_gen))
+    C = torch.where(small_th, C_th0, torch.where(small_sig, C_sig0, C_gen))
+
+    Wm = A[..., None, None] * eye + B[..., None, None] * W + C[..., None, None] * W2
+    t = torch.einsum("...ij,...j->...i", Wm, v)
+    return torch.cat([q, t, sigma[..., None]], dim=-1)
+
+
+def sim3_log(S):
+    """Sim(3) [..., 8] -> tangent [..., 7], solving t = Wm v; the columns of
+    Wm come from ``sim3_exp`` of the unit v basis."""
+    omega = so3_log(S[..., :4])
+    sigma = S[..., 7]
+    eye = torch.eye(3, dtype=S.dtype, device=S.device)
+    cols = [sim3_exp(torch.cat([omega, eye[i].expand(omega.shape), sigma[..., None]],
+                               dim=-1))[..., 4:7] for i in range(3)]
+    Wm = torch.stack(cols, dim=-1)
+    v = torch.linalg.solve(Wm, S[..., 4:7, None])[..., 0]
+    return torch.cat([omega, v, sigma[..., None]], dim=-1)
+
+
+def sim3_retract(S, tau):
+    return sim3_compose(sim3_exp(tau), S)

@@ -1,6 +1,6 @@
 """Synthetic sequence generator: textured 3D world + camera trajectory (port
-of ``rumi_slam_tpu/io/synthetic.py``; lost-span frames, the sweep trajectory
-and stereo pairs are not ported yet).
+of ``rumi_slam_tpu/io/synthetic.py``; the sweep trajectory and stereo pairs
+are not ported yet).
 
 The renderer splats textured squares at projected world-point locations:
 corner-rich imagery that FAST/BRIEF track well, with exact ground truth.
@@ -121,24 +121,34 @@ def smooth_trajectory(n_frames, *, seed=1, speed=0.06, yaw_rate=0.004, sway=0.10
 
 
 class SyntheticSequence:
-    """Frame source over a rendered world along ``smooth_trajectory``."""
+    """Frame source over a rendered world along ``smooth_trajectory``.
+
+    Frames ``i`` with ``lost_span[0] <= i < lost_span[1]`` render featureless
+    (a covered lens) while the trajectory goes on: the loss event that sends
+    the tracker to RECENTLY_LOST and then LOST.
+    """
 
     def __init__(self, n_frames=120, *, width=640, height=480, K=None,
-                 n_points=3000, seed=0, patch=4, device="cpu"):
+                 n_points=3000, seed=0, lost_span=None, patch=4, device="cpu"):
         self.world = make_world(n_points, seed=seed, device=device)
-        self.K = (
-            K if K is not None
-            else torch.tensor([width * 0.8, width * 0.8, width / 2 - 0.5, height / 2 - 0.5],
-                              dtype=torch.float32, device=device)
-        )
+        if K is None:
+            K = [width * 0.8, width * 0.8, width / 2 - 0.5, height / 2 - 0.5]
+        self.K = torch.as_tensor(K, dtype=torch.float32, device=device)
         self.width, self.height, self.patch = width, height, patch
+        self.lost_span = lost_span
         poses, self.times = smooth_trajectory(n_frames, seed=seed + 1)
         self.poses_gt = [p.to(device) for p in poses]
 
     def __len__(self):
         return len(self.poses_gt)
 
+    def _in_lost_span(self, i):
+        return self.lost_span is not None and self.lost_span[0] <= i < self.lost_span[1]
+
     def frame(self, i):
+        if self._in_lost_span(i):
+            return (torch.full((self.height, self.width), 40.0, dtype=torch.float32,
+                               device=self.K.device), float(self.times[i]))
         img = render_frame(self.world, self.K, self.poses_gt[i],
                            width=self.width, height=self.height, patch=self.patch)
         return img, float(self.times[i])

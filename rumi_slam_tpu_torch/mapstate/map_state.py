@@ -1,6 +1,13 @@
-"""MapState: the SLAM map as structure-of-arrays tensors (port of the
-``MapState`` record and ``empty`` of ``rumi_slam_tpu/mapstate/map_state.py``;
-the rest of its API is not ported yet).
+"""MapState: the SLAM map as structure-of-arrays tensors (port of
+``rumi_slam_tpu/mapstate/map_state.py``; ``add_keyframes_bulk`` and
+``relabel_map`` wait for rumination).
+
+Every function returns new tensors for the fields it changes and never
+writes into its input: the mapping worker's three-way merge needs the
+snapshot it was given to stay as it was.  Scatters whose indices can repeat
+are written so that their result does not depend on the order of the
+writes: ``put_rows`` writes only the rows that write (the JAX package's
+``mode="drop"``), and max/min/add reductions are order-free.
 
 Descriptor fields are int32 holding the JAX package's uint32 bit patterns.
 ``from_numpy``/``to_numpy`` carry a map between the two packages: the JAX
@@ -17,6 +24,7 @@ import numpy as np
 import torch
 
 DESC_FIELDS = ("kf_desc", "pt_desc")
+MIN_COVIS_WEIGHT = 15  # reference KeyFrame::UpdateConnections threshold
 
 
 class MapState(NamedTuple):
@@ -123,3 +131,254 @@ def to_numpy(ms: MapState) -> dict:
         a = t.detach().cpu().numpy()
         out[name] = a.view(np.uint32) if name in DESC_FIELDS else a
     return out
+
+
+# ---------------------------------------------------------------------------
+# updates (out of place)
+# ---------------------------------------------------------------------------
+
+def put_rows(arr, idx, val, keep):
+    """``arr`` with ``arr[idx[i]] = val[i]`` for the rows where ``keep[i]``;
+    the other rows write nothing (``.at[idx].set(val, mode="drop")`` with
+    the dropped rows routed out of range).  Kept rows that share an index
+    must write equal values, or the result depends on the order of the
+    writes.  The dropped rows go to a spare row past the end, which is cut
+    off."""
+    n = arr.shape[0]
+    spare = torch.cat([arr, arr[:1]])
+    tgt = torch.where(keep, idx.long(), n)
+    return spare.index_put((tgt,), val.to(arr.dtype))[:n]
+
+
+def put_row(arr, i, row):
+    """``arr`` with row ``i`` (0-d tensor or int) replaced by ``row``."""
+    i = torch.as_tensor(i, device=arr.device).long().reshape(1)
+    return arr.index_put((i,), torch.as_tensor(row, dtype=arr.dtype, device=arr.device)[None])
+
+
+def _scalar(x, dtype, device):
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def insert_keyframe(ms: MapState, pose, feats, time, point_assoc, *, map_id=None,
+                    is_cloud=False, ur=None):
+    """Append a keyframe at slot ``ms.n_kf`` (no-op if the map is full).
+
+    Args:
+      feats: ops.orb.Features with capacity == max_feat.
+      point_assoc: [F] int32 feature->point associations (-1 none).
+      map_id: submap label (default: active map).
+    Returns (ms, kf_id 0-d int32).
+    """
+    dev = ms.kf_pose.device
+    k = ms.n_kf
+    ok = k < ms.max_kf
+    kc = torch.clamp(k, 0, ms.max_kf - 1)
+    mid = ms.active_map if map_id is None else map_id
+
+    def wr(arr, val):
+        val = torch.as_tensor(val, dtype=arr.dtype, device=dev)
+        return put_row(arr, kc, torch.where(ok, val, arr[kc.long()]))
+
+    ur_row = (torch.full((ms.max_feat,), -1.0, dtype=torch.float32, device=dev)
+              if ur is None else ur)
+    ms = ms._replace(
+        kf_pose=wr(ms.kf_pose, pose),
+        kf_uv=wr(ms.kf_uv, feats.uv),
+        kf_octave=wr(ms.kf_octave, feats.octave),
+        kf_angle=wr(ms.kf_angle, feats.angle),
+        kf_desc=wr(ms.kf_desc, feats.desc),
+        kf_ur=wr(ms.kf_ur, ur_row),
+        kf_feat_valid=wr(ms.kf_feat_valid, feats.valid),
+        kf_point=wr(ms.kf_point, torch.where(feats.valid, point_assoc, -1)),
+        kf_time=wr(ms.kf_time, _scalar(time, torch.float32, dev)),
+        kf_map_id=wr(ms.kf_map_id, mid),
+        kf_valid=wr(ms.kf_valid, True),
+        kf_is_cloud=wr(ms.kf_is_cloud, is_cloud),
+        n_kf=torch.where(ok, k + 1, k),
+    )
+    return ms, kc
+
+
+def add_points(ms: MapState, xyz, desc, valid, ref_kf, *, map_id=None, octave=None,
+               angle=None):
+    """Append up to M points: slots go, in order, to the rows with
+    ``valid``; rows past capacity are dropped.
+
+    Args:
+      xyz [M, 3], desc [M, 8], valid [M].
+    Returns (ms, ids [M] int32 — allocated slot per row, -1 where none).
+    """
+    P = ms.max_pt
+    dev = ms.pt_xyz.device
+    mid = ms.active_map if map_id is None else map_id
+
+    offs = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = ms.n_pt + offs
+    usable = valid & (slot < P)
+    slot_c = torch.clamp(slot, 0, P - 1)
+    wmask = put_rows(torch.zeros((P,), dtype=torch.bool, device=dev), slot_c,
+                      torch.ones_like(usable), usable)
+
+    def scatter(arr, val):
+        return put_rows(arr, slot_c, val, usable)
+
+    ms = ms._replace(
+        pt_xyz=scatter(ms.pt_xyz, xyz),
+        pt_desc=scatter(ms.pt_desc, desc),
+        pt_valid=ms.pt_valid | wmask,
+        pt_map_id=torch.where(wmask, _scalar(mid, torch.int32, dev), ms.pt_map_id),
+        pt_ref_kf=torch.where(wmask, _scalar(ref_kf, torch.int32, dev), ms.pt_ref_kf),
+        pt_visible=torch.where(wmask, 1.0, ms.pt_visible),
+        pt_found=torch.where(wmask, 1.0, ms.pt_found),
+        pt_octave=ms.pt_octave if octave is None else scatter(ms.pt_octave, octave),
+        pt_angle=ms.pt_angle if angle is None else scatter(ms.pt_angle, angle),
+        n_pt=torch.clamp_max(ms.n_pt + torch.sum(valid.to(torch.int32)), P).to(torch.int32),
+    )
+    return ms, torch.where(usable, slot_c, -1).to(torch.int32)
+
+
+def set_associations(ms: MapState, kf_id, assoc):
+    """Overwrite feature->point associations of one KF ([F] int32, -1 none)."""
+    assoc = torch.where(ms.kf_feat_valid[kf_id], assoc, -1)
+    return ms._replace(kf_point=put_row(ms.kf_point, kf_id, assoc))
+
+
+def refresh_point_descriptors(ms: MapState, kf_id):
+    """Update observed points' representative descriptor, octave and angle
+    from one KF's features: the most recent observation wins.
+
+    Only the rows that observe a point write; where two rows of the KF
+    observe one point, the later row wins.  (The JAX package also writes the
+    unassociated rows, clipped to slot 0, with slot 0's old value, and on
+    the CPU such a row after the one observing point 0 undoes that point's
+    refresh: ROADMAP queue 3.)
+    """
+    pt = ms.kf_point[kf_id]
+    ok = (pt >= 0) & ms.kf_feat_valid[kf_id]
+    P, F = ms.max_pt, ms.max_feat
+    rows = torch.arange(F, device=pt.device)
+    last = torch.full((P + 1,), -1, dtype=torch.int64, device=pt.device).scatter_reduce(
+        0, torch.where(ok, pt.long(), P), torch.where(ok, rows, -1), "amax")
+    tgt = pt.clamp_min(0)
+    writes = ok & (last[tgt.long()] == rows)
+    return ms._replace(
+        pt_desc=put_rows(ms.pt_desc, tgt, ms.kf_desc[kf_id], writes),
+        pt_octave=put_rows(ms.pt_octave, tgt, ms.kf_octave[kf_id], writes),
+        pt_angle=put_rows(ms.pt_angle, tgt, ms.kf_angle[kf_id], writes),
+    )
+
+
+# ---------------------------------------------------------------------------
+# covisibility
+# ---------------------------------------------------------------------------
+
+def incidence(ms: MapState, map_id=None):
+    """Boolean KF x point observation incidence B [K, P]."""
+    K, F, P = ms.max_kf, ms.max_feat, ms.max_pt
+    dev = ms.kf_point.device
+    rows = torch.arange(K, device=dev)[:, None].expand(K, F)
+    obs = (ms.kf_point >= 0) & ms.kf_valid[:, None]
+    if map_id is not None:
+        obs = obs & (ms.kf_map_id[:, None] == map_id)
+    # every write is True, so repeated indices cannot race; column P is spare
+    cols = torch.where(obs, ms.kf_point.long().clamp(0, P - 1), P)
+    B = torch.zeros((K, P + 1), dtype=torch.bool, device=dev).index_put(
+        (rows, cols), torch.tensor(True, device=dev))[:, :P]
+    return B & ms.pt_valid[None, :]
+
+
+def covisibility(ms: MapState, map_id=None):
+    """Covisibility weights [K, K] int32 = number of shared points.  The 0/1
+    products and their sums are exact in a float32 matmul (no TF32)."""
+    B = incidence(ms, map_id).to(torch.float32)
+    Wgt = B @ B.T
+    Wgt = Wgt * (1.0 - torch.eye(ms.max_kf, device=B.device))
+    return Wgt.to(torch.int32)
+
+
+def point_obs_count(ms: MapState):
+    """[P] number of observing keyframes per point."""
+    return torch.sum(incidence(ms), dim=0).to(torch.int32)
+
+
+def local_window(ms: MapState, kf_id, *, window: int):
+    """Top-``window`` covisible KFs of ``kf_id`` (itself first).
+
+    Returns (kf_ids [window] int32, valid [window] bool).
+    """
+    from ..ops.select import top_k
+
+    Wgt = covisibility(ms)
+    kf = torch.as_tensor(kf_id, device=Wgt.device).long()
+    w = Wgt[kf] * ms.kf_valid.to(torch.int32) * (ms.kf_map_id == ms.kf_map_id[kf]).to(torch.int32)
+    w = put_row(w, kf, 1 << 30)
+    vals, ids = top_k(w, window)
+    return ids.to(torch.int32), vals >= MIN_COVIS_WEIGHT
+
+
+# ---------------------------------------------------------------------------
+# slot reclamation and submap statistics
+# ---------------------------------------------------------------------------
+
+def compact(ms: MapState):
+    """Reclaim dead slots: renumber valid KFs/points down to a contiguous
+    prefix, remapping every cross-reference (kf_point values, pt_ref_kf).
+    Runs on the host in numpy, rarely, at capacity pressure.
+
+    Returns (ms, kf_old2new [K] int32 numpy with -1, pt_old2new [P] int32).
+    """
+    K, F, P = ms.max_kf, ms.max_feat, ms.max_pt
+    dev = ms.kf_pose.device
+    host = to_numpy(ms)
+    kf_rows = np.flatnonzero(host["kf_valid"])
+    pt_rows = np.flatnonzero(host["pt_valid"])
+    nk, npt = len(kf_rows), len(pt_rows)
+    kf_map = np.full(K, -1, np.int32)
+    kf_map[kf_rows] = np.arange(nk, dtype=np.int32)
+    pt_map = np.full(P, -1, np.int32)
+    pt_map[pt_rows] = np.arange(npt, dtype=np.int32)
+
+    out = to_numpy(empty(K, F, P))
+    for name, a in out.items():
+        if name.startswith("kf_"):
+            a[:nk] = host[name][kf_rows]
+        elif name.startswith("pt_"):
+            a[:npt] = host[name][pt_rows]
+    kp = host["kf_point"][kf_rows]
+    out["kf_point"][:nk] = np.where(kp >= 0, pt_map[np.clip(kp, 0, None)], -1)
+    ref = host["pt_ref_kf"][pt_rows]
+    out["pt_ref_kf"][:npt] = np.where(ref >= 0, kf_map[np.clip(ref, 0, None)], -1)
+    out["n_kf"] = np.int32(nk)
+    out["n_pt"] = np.int32(npt)
+    out["active_map"] = host["active_map"]
+    out["n_maps"] = host["n_maps"]
+    return from_numpy(out, dev), kf_map, pt_map
+
+
+def map_kf_count(ms: MapState, map_id):
+    return torch.sum((ms.kf_map_id == map_id) & ms.kf_valid)
+
+
+def map_duration(ms: MapState, map_id):
+    """Timestamp span of a submap."""
+    sel = (ms.kf_map_id == map_id) & ms.kf_valid
+    tmax = torch.max(torch.where(sel, ms.kf_time, -float("inf")))
+    tmin = torch.min(torch.where(sel, ms.kf_time, float("inf")))
+    return torch.where(torch.any(sel), tmax - tmin, 0.0)
+
+
+def map_trajectory_curvature(ms: MapState, map_id):
+    """Path length / chord length of the KF camera centres (slot order is
+    time order)."""
+    from ..geometry import lie
+
+    sel = (ms.kf_map_id == map_id) & ms.kf_valid
+    centers = lie.se3_t(lie.se3_inverse(ms.kf_pose))
+    pair = sel[:-1] & sel[1:]
+    seg = torch.linalg.vector_norm(centers[1:] - centers[:-1], dim=-1) * pair
+    path = torch.sum(seg)
+    first = torch.argmax(sel.to(torch.int32))
+    last = ms.max_kf - 1 - torch.argmax(torch.flip(sel, (0,)).to(torch.int32))
+    chord = torch.linalg.vector_norm(centers[last] - centers[first])
+    return torch.where(chord > 1e-6, path / torch.clamp_min(chord, 1e-6), 1.0)

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 
-def _top_k(x, k: int):
+def top_k(x, k: int):
     """``lax.top_k`` along the last axis, including its tie order: equal
     values come out lowest index first.  ``torch.topk`` promises no order
     among ties, and the score maps hold many (all the zeros), so this sorts
@@ -35,7 +35,7 @@ def select_keypoints(score, n_total: int, cell: int = 32, k_cell: int = 5):
     cells = sp.reshape(ncy, cell, ncx, cell).permute(0, 2, 1, 3).reshape(
         ncy * ncx, cell * cell
     )
-    cs, ci = _top_k(cells, k_cell)                       # [ncells, k_cell]
+    cs, ci = top_k(cells, k_cell)                       # [ncells, k_cell]
 
     cell_ids = torch.arange(ncy * ncx, device=score.device)[:, None]
     gy = (cell_ids // ncx) * cell + ci // cell
@@ -46,7 +46,7 @@ def select_keypoints(score, n_total: int, cell: int = 32, k_cell: int = 5):
     flat_x = gx.reshape(-1)
 
     k = min(n_total, flat_s.shape[0])
-    top_s, top_i = _top_k(flat_s, k)
+    top_s, top_i = top_k(flat_s, k)
     yx = torch.stack([flat_y[top_i], flat_x[top_i]], dim=-1)
     valid = top_s > 0.0
     if k < n_total:

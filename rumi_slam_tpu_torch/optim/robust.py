@@ -15,6 +15,9 @@ def huber_weight(chi2, delta2):
 
 
 def huber_cost(chi2, delta2):
-    delta = float(np.sqrt(np.float32(delta2)))  # float32 sqrt, as in JAX
+    if isinstance(delta2, torch.Tensor):   # per-row thresholds (mixed mono/stereo)
+        delta = torch.sqrt(delta2.to(chi2.dtype))
+    else:
+        delta = float(np.sqrt(np.float32(delta2)))  # float32 sqrt, as in JAX
     e = torch.sqrt(torch.clamp_min(chi2, 0.0))
     return torch.where(chi2 <= delta2, chi2, 2.0 * delta * e - delta2)

@@ -216,12 +216,18 @@ def test_port_imports_without_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'rumi_slam_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PKG.parent, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 35
+    for m in ("system", "evaluation.ate", "geometry.alignment", "geometry.triangulation",
+              "optim.ba", "optim.two_view", "optim.pnp", "optim.ransac",
+              "tracking.local_mapping", "tracking.mapping_worker", "utils.profiling",
+              "utils.verbose"):
+        assert f"rumi_slam_tpu_torch.{m}" in names, m
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():

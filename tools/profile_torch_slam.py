@@ -1,0 +1,119 @@
+"""Profile the PyTorch port's monocular SLAM facade on one GPU.
+
+    python -m tools.profile_torch_slam [--frames 60]
+
+Runs the drive of ``chip_smoke.py`` phase 6 (``SlamSystem.track_monocular``
+over ``SyntheticSequence(seed=4)`` at the full ``Config()`` size, loop
+closing off, synchronous mapping) twice, each time on a fresh system: once
+for the wall time, once under ``torch.profiler`` with each ``StageTimer``
+stage marked as a ``record_function`` range.  Prints the device (kernel)
+time of the drive over its wall time without the profiler as the device busy
+share; per stage, its host time and the kernel time launched in it, both
+under the profiler; the kernel launches, syncs and copies; then the kernels
+with the most device time and the operators with the most host time.  Needs
+a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import bisect
+import contextlib
+import dataclasses
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from rumi_slam_tpu_torch.config import Config
+from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+from rumi_slam_tpu_torch.system import SlamSystem
+
+
+def drive(cfg, seq, marked=False):
+    """Run the drive on a fresh system; returns (system, wall seconds)."""
+    slam = SlamSystem(cfg, device="cuda")
+    if marked:
+        stage = slam.timer.stage
+
+        @contextlib.contextmanager
+        def marked_stage(name):
+            with record_function(f"stage/{name}"), stage(name):
+                yield
+
+        slam.timer.stage = marked_stage
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(len(seq)):
+        slam.track_monocular(*seq.frame(i))
+    torch.cuda.synchronize()
+    return slam, time.perf_counter() - t0
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=60)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_slam: no CUDA device")
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, loop_closing=False, overlapped=False))
+    c = cfg.camera
+    seq = SyntheticSequence(n_frames=a.frames, width=c.width, height=c.height,
+                            K=cfg.intrinsics("cuda"), seed=4, device="cuda")
+    frames = [seq.frame(i) for i in range(len(seq))]   # render once, outside the timing
+    seq.frame = lambda i: frames[i]
+
+    drive(cfg, seq)                                     # warm-up (kernel build, caches)
+    slam, wall = drive(cfg, seq)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        slam_p, wall_p = drive(cfg, seq, marked=True)
+    ka = prof.key_averages()
+    # the stage ranges appear on the device timeline as annotations: keep
+    # them out of the kernel sums, and attribute each kernel to the stage
+    # range that holds its start
+    kernels, ranges = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith("stage/"):
+            ranges.append((e.time_range.start, e.time_range.end, e.name[len("stage/"):]))
+        else:
+            kernels.append((e.time_range.start, e.time_range.end - e.time_range.start))
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    dev_by_stage = {}
+    for t0, dur in kernels:
+        i = bisect.bisect_right(starts, t0) - 1
+        name = ranges[i][2] if i >= 0 and t0 < ranges[i][1] else "outside stages"
+        dev_by_stage[name] = dev_by_stage.get(name, 0.0) + dur
+    dev_us = sum(d for _, d in kernels)
+    launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                     "cudaLaunchKernelExC"))
+    stages = {}
+    for name, st in slam_p.timer.stats().items():
+        dev_s = dev_by_stage.get(name, 0.0) / 1e6
+        stages[name] = {"n": st["n"], "host_s_profiled": st["total_s"], "device_s": dev_s,
+                        "device_busy_share_profiled": dev_s / st["total_s"]}
+    stages["outside stages"] = {"device_s": dev_by_stage.get("outside stages", 0.0) / 1e6}
+    print(json.dumps({
+        "frames": len(frames), "n_kf": slam.stats["n_kf"],
+        "wall_s": wall, "wall_s_profiled": wall_p, "device_busy_s": dev_us / 1e6,
+        "device_busy_share": dev_us / 1e6 / wall,
+        "device_busy_share_profiled": dev_us / 1e6 / wall_p,
+        "kernel_launches_per_frame": launches / len(frames),
+        "stage_wall": slam.timer.stats(), "stage_profiled": stages,
+        "syncs_and_copies": {e.key: e.count for e in ka
+                             if "Synchronize" in e.key or "memcpy" in e.key.lower()},
+    }))
+    sort_dev = "self_device_time_total" if hasattr(ka[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    print(ka.table(sort_by=sort_dev, row_limit=30))
+    print(ka.table(sort_by="self_cpu_time_total", row_limit=25))
+
+
+if __name__ == "__main__":
+    main()
