@@ -19,7 +19,7 @@ TH_LOW = 50.0    # reference ORBmatcher.h TH_LOW
 TH_HIGH = 100.0  # reference ORBmatcher.h TH_HIGH
 HISTO_BINS = 30
 
-_BIG = 1e9
+BIG = 1e9
 
 
 def _bits(desc_packed):
@@ -66,14 +66,31 @@ def octave_mask(oct_a, oct_b, tol=1):
     return torch.abs(oct_a[:, None] - oct_b[None, :]) <= tol
 
 
-def _top2(d):
+def top2(d):
     """Best, second best and argbest per row, as ``lax.top_k(-d, 2)`` gives
     them, ties included: ``argmin`` returns the first minimum, and the second
     best is the minimum once that one column is masked."""
     idx = torch.argmin(d, dim=1, keepdim=True)
     best = torch.gather(d, 1, idx)[:, 0]
-    second = torch.amin(torch.scatter(d, 1, idx, _BIG), dim=1)
+    second = torch.amin(torch.scatter(d, 1, idx, BIG), dim=1)
     return best, second, idx[:, 0].to(torch.int32)
+
+
+def top2_start(n, device):
+    """(best, second, argbest) before any column is seen: 1e9, 1e9, -1."""
+    return (torch.full((n,), BIG, dtype=torch.float32, device=device),
+            torch.full((n,), BIG, dtype=torch.float32, device=device),
+            torch.full((n,), -1, dtype=torch.int32, device=device))
+
+
+def merge_top2(state, part):
+    """Merge of two partial (best, second, argbest) triples, ``state`` from
+    lower column indices than ``part``: strict ``<`` keeps the lower index on
+    a tie."""
+    best, second, idx = state
+    cb, cs, ci = part
+    second = torch.minimum(torch.minimum(second, cs), torch.maximum(best, cb))
+    return torch.minimum(best, cb), second, torch.where(cb < best, ci, idx)
 
 
 def match(dist, valid_a, valid_b, *, mask=None, max_dist=TH_LOW, ratio=0.9,
@@ -94,8 +111,8 @@ def match(dist, valid_a, valid_b, *, mask=None, max_dist=TH_LOW, ratio=0.9,
     allowed = valid_a[:, None] & valid_b[None, :]
     if mask is not None:
         allowed = allowed & mask
-    d = torch.where(allowed, dist, _BIG)
-    best, second, idx = _top2(d)
+    d = torch.where(allowed, dist, BIG)
+    best, second, idx = top2(d)
     ok = (best <= max_dist) & (best < ratio * second) & valid_a
     if cross_check:
         col_best = torch.argmin(d, dim=0)
@@ -116,22 +133,15 @@ def match_chunked(desc_a, valid_a, desc_b, valid_b, *, n_chunks: int,
     if Nb % n_chunks:
         raise ValueError(f"match_chunked: {Nb} rows do not split into {n_chunks} chunks")
     Cb = Nb // n_chunks
-    Na = desc_a.shape[0]
-    dev = desc_a.device
     a = unpack_pm1(desc_a).to(torch.float32)
-    best = torch.full((Na,), _BIG, dtype=torch.float32, device=dev)
-    second = torch.full((Na,), _BIG, dtype=torch.float32, device=dev)
-    bidx = torch.full((Na,), -1, dtype=torch.int32, device=dev)
+    state = top2_start(desc_a.shape[0], desc_a.device)
     for c in range(n_chunks):
         b = unpack_pm1(desc_b[c * Cb:(c + 1) * Cb]).to(torch.float32)
         d = (256.0 - a @ b.T) * 0.5
-        d = torch.where(valid_a[:, None] & valid_b[None, c * Cb:(c + 1) * Cb], d, _BIG)
-        cb, cs, ci = _top2(d)
-        ci = ci + c * Cb
-        new_second = torch.minimum(torch.minimum(second, cs), torch.maximum(best, cb))
-        bidx = torch.where(cb < best, ci, bidx)
-        best = torch.minimum(best, cb)
-        second = new_second
+        d = torch.where(valid_a[:, None] & valid_b[None, c * Cb:(c + 1) * Cb], d, BIG)
+        cb, cs, ci = top2(d)
+        state = merge_top2(state, (cb, cs, ci + c * Cb))
+    best, second, bidx = state
     ok = (best <= max_dist) & (best < ratio * second) & valid_a
     return torch.where(ok, bidx, -1), torch.where(ok, best, float("inf"))
 

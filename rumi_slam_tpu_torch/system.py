@@ -51,7 +51,10 @@ def _not_ported(what: str, item: str):
 
 
 class SlamSystem:
-    def __init__(self, config: Config | None = None, *, device="cpu"):
+    def __init__(self, config: Config | None = None, *, device="cuda"):
+        """``device``: where the system's state and every frame's work live.
+        The default is the card, and a host without one raises; pass
+        ``device="cpu"`` to run on the CPU."""
         self.cfg = config or Config()
         cam = self.cfg.camera
         if cam.model != "pinhole" or any(c != 0.0 for c in cam.dist_coeffs):
@@ -61,6 +64,10 @@ class SlamSystem:
             raise _not_ported("loop closing (cfg.mapping.loop_closing=True)",
                               "11: loop closing")
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"SlamSystem: device {device!r} asked for and no CUDA device is present "
+                "(pass device=\"cpu\" to run on the CPU)")
         self.K = self.cfg.intrinsics(self.device)
         o = self.cfg.orb
         self.extractor = ORBExtractor(

@@ -24,7 +24,7 @@ from ..geometry import camera
 from ..mapstate import map_state as M
 from ..mapstate.map_state import MapState
 from ..ops import matcher, select
-from ..ops.fused_matcher import fused_match
+from ..ops.fused_matcher import fused_match, match_bank
 from ..optim import pnp, pose_opt
 
 
@@ -160,8 +160,9 @@ def relocalize_map(draw, ms: MapState, K, feats, *, max_hamming=80.0, nn_ratio=0
                    map_id=None):
     """Prior-free relocalisation against the whole active submap: match the
     frame against every stored observation descriptor (``kf_desc``
-    flattened, in ``min(16, max_kf)`` chunks with a running top-2), PnP
-    RANSAC on the point-bearing matches, polish on the consensus set.
+    flattened; ``match_bank``: the kernel's gate-off mode on the card, on the
+    CPU ``min(16, max_kf)`` chunks with a running top-2), PnP RANSAC on the
+    point-bearing matches, polish on the consensus set.
 
     Returns (TrackResult, ref_kf 0-d: the KF sharing most recovered points).
     """
@@ -170,7 +171,7 @@ def relocalize_map(draw, ms: MapState, K, feats, *, max_hamming=80.0, nn_ratio=0
     obs_pt = torch.where(ms.kf_valid[:, None], ms.kf_point, -1).reshape(-1)
     opc = obs_pt.clamp_min(0).long()
     obs_ok = (obs_pt >= 0) & ms.pt_valid[opc] & (ms.pt_map_id[opc] == mid)
-    idx, mdist = matcher.match_chunked(
+    idx, mdist = match_bank(
         feats.desc, feats.valid, obs_desc, obs_ok,
         n_chunks=min(16, ms.max_kf), max_dist=max_hamming, ratio=nn_ratio)
     idx = torch.where(idx >= 0, obs_pt[idx.clamp_min(0).long()], -1)

@@ -9,9 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from rumi_slam_tpu_torch.config import tiny_config
+from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
 from rumi_slam_tpu_torch.mapstate import map_state as M
 from rumi_slam_tpu_torch.ops import fused_matcher as fm
+from rumi_slam_tpu_torch.ops import matcher
 from rumi_slam_tpu_torch.ops.orb import Features
+from rumi_slam_tpu_torch.optim import ransac
+from rumi_slam_tpu_torch.system import SlamSystem
 from rumi_slam_tpu_torch.tracking import tracker
 
 pytestmark = pytest.mark.cuda
@@ -52,7 +57,8 @@ def run_both(args, radius, dev):
 
 
 @pytest.mark.parametrize("F,P,radius", [(256, 1024, 60.0), (1000, 5000, 30.0), (1, 1, 500.0),
-                                        (129, 257, 1e4), (2048, 16384, 15.0)])
+                                        (129, 257, 1e4), (2048, 16384, 15.0),
+                                        (130, 70000, 1e12), (1024, 16385, 40.0)])
 def test_kernel_equals_plain(dev, F, P, radius):
     idx_k, dist_k, idx_p, dist_p = run_both(problem(F, P, seed=F), radius, dev)
     assert torch.equal(idx_k, idx_p)
@@ -75,6 +81,76 @@ def test_kernel_ties_and_radius_boundary(dev):
     idx_k, _, idx_p, _ = run_both((dq, dp, uv_q, uv_p, vq, vp), 5.0, dev)
     assert torch.equal(idx_k, idx_p)
     assert idx_k[0] == -1 and idx_k[1] == 20
+
+
+def test_kernel_ties_across_splits_and_exact_radius_at_full_width(dev):
+    """P = 16384 is one tile per split: equal descriptors in different
+    splits go to the lowest index, whatever order the blocks ran in, and a
+    point exactly on the radius in the last split is inside."""
+    dq, dp, uv_q, uv_p, vq, vp = problem(1024, 16384, seed=8, span=600.0)
+    vq[:3] = True
+    one_bit = torch.zeros(8, dtype=torch.int32)
+    one_bit[0] = 1
+    for q, rows in ((0, [300, 9000, 16383]), (1, [255, 256])):
+        dp[rows] = dq[q] ^ one_bit               # a tie at distance 1
+        uv_p[rows] = uv_q[q]
+        vp[rows] = True
+    dp[16000] = dq[2]
+    uv_q[2] = torch.tensor([200.0, 100.0])
+    uv_p[16000] = torch.tensor([212.0, 105.0])   # exactly 13 px away
+    vp[16000] = True
+    cu = [a.to(dev) for a in (dq, dp, uv_q, uv_p, vq, vp)]
+    for _ in range(3):
+        idx_k, dist_k = fm.fused_match(*cu[:4], 13.0, *cu[4:], ratio=1.01)
+        idx_p, dist_p = fm.fused_match_plain(*cu[:4], 13.0, *cu[4:], ratio=1.01)
+        assert torch.equal(idx_k, idx_p) and torch.equal(dist_k, dist_p)
+        assert idx_k[:3].tolist() == [300, 255, 16000]
+    idx_s, _ = fm.fused_match_plain_split(*cu[:4], 13.0, *cu[4:], ratio=1.01, n_splits=64)
+    assert torch.equal(idx_s, idx_p)
+
+
+def bank_problem(Na, Nb, seed, valid_share):
+    """Seeded query and bank descriptors; 60 bank rows copy a query, some of
+    them twice (ties) and some with a one-bit neighbour (a close second)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, (Na, 8), dtype=np.uint32)
+    b = rng.integers(0, 2**32, (Nb, 8), dtype=np.uint32)
+    n = min(60, Na, Nb // 4)
+    rows = rng.choice(Nb, 3 * n, replace=False)
+    qrows = rng.choice(Na, n, replace=False)
+    b[rows[:n]] = a[qrows]
+    b[rows[n:n + n // 3]] = a[qrows[:n // 3]]                          # ties
+    b[rows[2 * n:2 * n + n // 3]] = a[qrows[-(n // 3):]] ^ np.uint32(1)  # one bit away
+    return [torch.from_numpy(x) for x in (a.view(np.int32), rng.random(Na) > 0.1,
+                                          b.view(np.int32), rng.random(Nb) < valid_share)]
+
+
+@pytest.mark.parametrize("Na,Nb,valid_share", [(256, 4096, 0.9), (1000, 50000, 0.5), (1, 1, 1.0),
+                                               (129, 257, 0.9), (1024, 262144, 0.08),
+                                               (300, 16384, 0.0)])
+def test_bank_kernel_equals_match_chunked(dev, Na, Nb, valid_share):
+    """The gate-off instantiation against ``matcher.match_chunked`` (one
+    chunk: the kernel needs no divisor of the bank's rows)."""
+    a, va, b, vb = [x.to(dev) for x in bank_problem(Na, Nb, Na + Nb, valid_share)]
+    before = fm.match_bank.launches
+    for max_dist, ratio in ((80.0, 0.9), (100.0, 1.01)):
+        idx_k, dist_k = fm.match_bank(a, va, b, vb, n_chunks=1, max_dist=max_dist, ratio=ratio)
+        torch.cuda.synchronize()
+        idx_p, dist_p = matcher.match_chunked(a, va, b, vb, n_chunks=1, max_dist=max_dist,
+                                              ratio=ratio)
+        assert torch.equal(idx_k, idx_p) and torch.equal(dist_k, dist_p)
+    assert fm.match_bank.launches == before + 2
+    assert valid_share < 0.5 or Nb < 4096 or int((idx_k >= 0).sum()) > 20
+
+
+def test_bank_kernel_rejects_bad_inputs(dev):
+    a, va, b, vb = [x.to(dev) for x in bank_problem(64, 512, 1, 0.9)]
+    with pytest.raises(ValueError, match="desc_p"):
+        fm.match_bank(a, va, b[:, :4], vb, n_chunks=1)
+    with pytest.raises(ValueError, match="valid_q"):
+        fm.match_bank(a, va.to(torch.uint8), b, vb, n_chunks=1)
+    with pytest.raises(ValueError, match="is on"):
+        fm.match_bank(a, va, b, vb.cpu(), n_chunks=1)
 
 
 def test_kernel_rejects_bad_inputs(dev):
@@ -113,3 +189,54 @@ def test_track_frame_on_card_equals_cpu(dev):
     assert torch.equal(tr_g.assoc.cpu(), tr_c.assoc)
     assert int(tr_g.n_inliers) == int(tr_c.n_inliers) > 100
     torch.testing.assert_close(tr_g.pose.cpu(), tr_c.pose, rtol=0, atol=1e-4)
+
+
+def test_relocalize_map_on_card_equals_cpu(dev, monkeypatch):
+    """``relocalize_map`` through the gate-off kernel on the card against
+    ``relocalize_map`` through ``match_chunked`` on the CPU, given the same
+    RANSAC draw, on the map of a short drive and a frame the map has seen.
+    The matcher's output is equal bit for bit.  PnP then solves each
+    hypothesis with a float32 eigen decomposition (``pnp._dlt_pose``) whose
+    last digits differ between the card's solver and the CPU's, and takes the
+    consensus set of the best raw hypothesis, a noisy subset of the true
+    matches.  Handed the card's hypotheses, the CPU returns the same
+    ``assoc``; solving its own, it recovers the pose, agrees wherever both
+    associate a feature and polishes to a pose within 0.01 (the two consensus
+    sets may share few rows or none)."""
+    from rumi_slam_tpu_torch.optim import pnp
+
+    seq = SyntheticSequence(n_frames=14, width=320, height=240, n_points=1500, seed=4, patch=3)
+    slam = SlamSystem(tiny_config(), device="cpu")
+    for i in range(14):
+        slam.track_monocular(*seq.frame(i))
+    assert slam.stats["n_kf"] >= 3
+    feats = slam.extractor(seq.frame(12)[0])
+    to = lambda x: x.to(dev)
+    ms_g, K_g, feats_g = M.MapState(*map(to, slam.ms)), to(slam.K), Features(*map(to, feats))
+    matched, solved = [], []
+    match_bank, dlt_pose = tracker.match_bank, pnp._dlt_pose
+    monkeypatch.setattr(tracker, "match_bank",
+                        lambda *a, **kw: matched.append(match_bank(*a, **kw)) or matched[-1])
+    draw = lambda: ransac.sampler(torch.Generator().manual_seed(1))
+    before = fm.match_bank.launches
+    monkeypatch.setattr(pnp, "_dlt_pose",
+                        lambda X, rays: solved.append(dlt_pose(X, rays)) or solved[-1])
+    tr_g, ref_g = tracker.relocalize_map(draw(), ms_g, K_g, feats_g)
+    assert fm.match_bank.launches == before + 1 and len(solved) == 1
+    monkeypatch.setattr(pnp, "_dlt_pose", lambda X, rays: solved[0].cpu())
+    tr_h, ref_h = tracker.relocalize_map(draw(), slam.ms, slam.K, feats)
+    monkeypatch.setattr(pnp, "_dlt_pose", dlt_pose)
+    tr_c, _ = tracker.relocalize_map(draw(), slam.ms, slam.K, feats)
+    (idx_g, dist_g), _, (idx_c, dist_c) = matched
+    assert torch.equal(idx_g.cpu(), idx_c) and torch.equal(dist_g.cpu(), dist_c)
+    assert int(tr_g.n_candidates) == int(tr_c.n_candidates)
+    a_g, a_c = tr_g.assoc.cpu(), tr_c.assoc
+    # the card's hypotheses on the CPU: the same result from there on
+    assert torch.equal(a_g, tr_h.assoc) and int(ref_g) == int(ref_h)
+    torch.testing.assert_close(tr_g.pose.cpu(), tr_h.pose, rtol=0, atol=1e-4)
+    # the CPU's own hypotheses
+    both = (a_g >= 0) & (a_c >= 0)
+    n_min = min(int(tr_g.n_inliers), int(tr_c.n_inliers))
+    assert n_min >= 12
+    assert torch.equal(a_g[both], a_c[both])
+    torch.testing.assert_close(tr_g.pose.cpu(), tr_c.pose, rtol=0, atol=1e-2)

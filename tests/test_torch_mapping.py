@@ -308,7 +308,7 @@ def test_capacity_eviction_and_compaction_keep_tracking():
         cfg, mapping=dataclasses.replace(cfg.mapping, max_kf=10, max_pt=1024, kf_culling=True),
         tracking=dataclasses.replace(cfg.tracking, kf_min_interval=1, kf_tracked_ratio=1.1))
     seq = SyntheticSequence(n_frames=30, width=320, height=240, n_points=1500, seed=4, patch=3)
-    slam = SlamSystem(cfg)
+    slam = SlamSystem(cfg, device="cpu")
     ok = sum(slam.track_monocular(*seq.frame(i)).name == "OK" for i in range(len(seq)))
     ms = slam.ms
     assert ok >= 27

@@ -1,7 +1,10 @@
 """Parity of the port's matcher with the JAX package: Hamming distances,
 the radius gate, best/second-best selection with its tie order, and the
 fused matcher's plain version against the JAX Pallas kernel (interpret mode,
-as tests/test_pallas_and_gba.py runs it on the CPU)."""
+as tests/test_pallas_and_gba.py runs it on the CPU), the plain model of the
+CUDA kernel's split-and-merge against both, and ``match_bank`` against the JAX
+package's ``match_chunked``.  Tolerance throughout: ``idx`` exact, ``dist``
+exact (integers in float32)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -161,6 +164,142 @@ def test_fused_match_rejects_other_devices():
     meta = [x.to("meta") for x in (as_port(dq), as_port(dp), t(uv_q), t(uv_p))]
     with pytest.raises(ValueError, match="unsupported device"):
         tfm.fused_match(*meta, 10.0, t(vq).to("meta"), t(vp).to("meta"))
+
+
+def pallas_interpret(dq, dp, uv_q, uv_p, radius, vq, vp, **kw):
+    idx, dist = j_fused_match(jnp.asarray(dq), jnp.asarray(dp), jnp.asarray(uv_q),
+                              jnp.asarray(uv_p), radius, jnp.asarray(vq), jnp.asarray(vp),
+                              interpret=True, **kw)
+    return np.asarray(idx), np.asarray(dist)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7])
+def test_fused_match_plain_split_equals_plain_and_pallas(n_splits):
+    """The kernel's split-and-merge, modelled in plain PyTorch, gives what
+    the unsplit plain version and the Pallas kernel give, whether or not the
+    splits divide P (1024 = 7 * 147 - 5)."""
+    dq, dp, uv_q, uv_p, vq, vp = problem(256, 1024, seed=0)
+    args = (as_port(dq), as_port(dp), t(uv_q), t(uv_p), 60.0, t(vq), t(vp))
+    i_s, d_s = tfm.fused_match_plain_split(*args, n_splits=n_splits, max_dist=80.0, ratio=0.9)
+    i_p, d_p = tfm.fused_match_plain(*args, max_dist=80.0, ratio=0.9)
+    i_j, d_j = pallas_interpret(dq, dp, uv_q, uv_p, 60.0, vq, vp, max_dist=80.0, ratio=0.9)
+    np.testing.assert_array_equal(i_s.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(d_s.numpy(), d_p.numpy())
+    np.testing.assert_array_equal(i_s.numpy(), i_j)
+    m = i_j >= 0
+    assert m.sum() > 20
+    np.testing.assert_array_equal(d_s.numpy()[m], d_j[m])
+
+
+@pytest.mark.parametrize("F,P,n_splits", [(37, 129, 4), (200, 701, 3), (5, 3, 7), (64, 100, 100)])
+def test_fused_match_plain_split_ragged(F, P, n_splits):
+    """P that no split count divides, and more splits than points."""
+    dq, dp, uv_q, uv_p, vq, vp = problem(F, P, seed=F + P, n_copy=F // 2 + 1)
+    args = (as_port(dq), as_port(dp), t(uv_q), t(uv_p), 40.0, t(vq), t(vp))
+    i_s, d_s = tfm.fused_match_plain_split(*args, n_splits=n_splits)
+    i_p, d_p = tfm.fused_match_plain(*args)
+    np.testing.assert_array_equal(i_s.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(d_s.numpy(), d_p.numpy())
+
+
+def tie_problem():
+    """256 queries against 256 points with every uv at one pixel, so that the
+    gate passes every pair.  Query 0's descriptor with one bit flipped sits
+    at points 10 and 200 (a tie at distance 1 across splits of 128 and of 64),
+    query 1's at points 20 and 21 (a tie inside a split), query 2's own only
+    at point 150 (exactly one candidate
+    once the rest is invalid), and query 3 has no valid point at all."""
+    rng = np.random.default_rng(11)
+    dq = rng.integers(0, 2**32, (256, 8), dtype=np.uint32)
+    dp = rng.integers(0, 2**32, (256, 8), dtype=np.uint32)
+    dp[10] = dp[200] = dq[0] ^ np.uint32(1)
+    dp[20] = dp[21] = dq[1] ^ np.uint32(1)
+    dp[150] = dq[2]
+    uv = np.full((256, 2), 50.0, np.float32)
+    return dq, dp, uv, uv.copy(), np.ones(256, bool), np.ones(256, bool)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 4])
+def test_split_ties_resolve_to_lowest_index(n_splits):
+    dq, dp, uv_q, uv_p, vq, vp = tie_problem()
+    args = (as_port(dq), as_port(dp), t(uv_q), t(uv_p), 5.0, t(vq), t(vp))
+    for ratio, want in ((0.9, [-1, -1, 150]), (1.01, [10, 20, 150])):
+        i_s, d_s = tfm.fused_match_plain_split(*args, n_splits=n_splits, ratio=ratio)
+        i_p, d_p = tfm.fused_match_plain(*args, ratio=ratio)
+        i_j, _ = pallas_interpret(dq, dp, uv_q, uv_p, 5.0, vq, vp, max_dist=80.0, ratio=ratio)
+        np.testing.assert_array_equal(i_s.numpy(), i_p.numpy())
+        np.testing.assert_array_equal(d_s.numpy(), d_p.numpy())
+        np.testing.assert_array_equal(i_s.numpy(), i_j)
+        assert i_s.numpy()[:3].tolist() == want   # a tie fails the ratio test below 1
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 4])
+def test_split_one_candidate_and_none(n_splits):
+    """With one candidate the second best stays at its 1e9 start, so the
+    ratio test passes; with none ``idx`` is -1 and ``dist`` inf."""
+    dq, dp, uv_q, uv_p, vq, vp = tie_problem()
+    vp[:] = False
+    vp[150] = True                      # the only valid point, query 2's copy
+    uv_q[3] = [300.0, 300.0]            # query 3 sees nothing inside its window
+    args = (as_port(dq), as_port(dp), t(uv_q), t(uv_p), 5.0, t(vq), t(vp))
+    i_s, d_s = tfm.fused_match_plain_split(*args, n_splits=n_splits, max_dist=256.0)
+    i_p, d_p = tfm.fused_match_plain(*args, max_dist=256.0)
+    i_j, _ = pallas_interpret(dq, dp, uv_q, uv_p, 5.0, vq, vp, max_dist=256.0, ratio=0.9)
+    np.testing.assert_array_equal(i_s.numpy(), i_p.numpy())
+    np.testing.assert_array_equal(d_s.numpy(), d_p.numpy())
+    np.testing.assert_array_equal(i_s.numpy(), i_j)
+    assert i_s[2] == 150 and d_s[2] == 0.0
+    assert i_s[3] == -1 and np.isinf(d_s[3].item())
+    assert (np.delete(i_s.numpy(), 3) == 150).all()   # every other query: its one candidate
+
+
+@pytest.mark.parametrize("n_q,n_p,n_sm", [(1024, 16384, 132), (2048, 16384, 132),
+                                          (1024, 262144, 132), (1000, 50000, 132),
+                                          (1, 1, 132), (300, 0, 108)])
+def test_split_plan_covers_the_points(n_q, n_p, n_sm):
+    """The grid plan the wrapper hands the kernel: whole tiles, every point
+    covered, no empty split, and at the main path's shapes at least three
+    blocks for every SM."""
+    n_splits, tiles_per_split = tfm.split_plan(n_q, n_p, n_sm)
+    tiles = max(1, -(-n_p // tfm.POINTS_PER_TILE))
+    assert n_splits >= 1 and tiles_per_split >= 1
+    assert n_splits * tiles_per_split >= tiles > (n_splits - 1) * tiles_per_split
+    if n_p >= 16384:
+        assert -(-n_q // tfm.QUERIES_PER_BLOCK) * n_splits >= 3 * n_sm
+
+
+@pytest.mark.parametrize("n_chunks", [1, 4, 16])
+def test_match_bank_on_cpu_equals_jax_match_chunked(n_chunks):
+    """The inputs of test_torch_reloc.py::test_match_chunked_matches_jax:
+    copies planted so that there are matches, a tie across chunks and a
+    second best one bit away.  On CPU tensors ``match_bank`` launches
+    nothing."""
+    a, b = descs(100, 1), descs(256, 2)
+    b[::9][:11] = a[:11]
+    b[5] = b[200] = a[20]
+    b[130] = a[21]
+    b[131] = a[21] ^ np.uint32(1)
+    va = np.random.default_rng(3).random(100) > 0.1
+    vb = np.random.default_rng(4).random(256) > 0.1
+    before = tfm.match_bank.launches
+    for max_dist, ratio in ((50.0, 0.9), (100.0, 0.95)):
+        ij, dj = jm.match_chunked(jnp.asarray(a), jnp.asarray(va), jnp.asarray(b),
+                                  jnp.asarray(vb), n_chunks=n_chunks, max_dist=max_dist,
+                                  ratio=ratio)
+        it, dt = tfm.match_bank(as_port(a), t(va), as_port(b), t(vb), n_chunks=n_chunks,
+                                max_dist=max_dist, ratio=ratio)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    assert tfm.match_bank.launches == before
+    assert (it.numpy() >= 0).sum() >= 5
+
+
+def test_match_bank_rejects_other_devices():
+    a, b = as_port(descs(8, 1)).to("meta"), as_port(descs(16, 2)).to("meta")
+    va, vb = torch.ones(8, dtype=torch.bool, device="meta"), torch.ones(16, dtype=torch.bool,
+                                                                        device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfm.match_bank(a, va, b, vb, n_chunks=1)
 
 
 def test_kernel_build_without_nvcc_raises():

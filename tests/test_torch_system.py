@@ -19,7 +19,9 @@ keyframes in the JAX package, 16 in the port; keyframe poses at shared
 timestamps within 0.0193 of each other (0.0016 RMSE after a Sim3 alignment
 of the centres); frame-trajectory ATE 0.0233 m against 0.0163 m.  On the
 lost-span drive: 11 keyframes in both, 0.0118 and 0.0023, ATE 0.0179 m
-against 0.0153 m.  The ``*_ATOL`` bounds below are 2-4x those gaps.
+against 0.0153 m.  On the relocalisation drive (two featureless frames, then
+map-level recovery in both): ATE 0.0178 m against 0.0183 m.  The ``*_ATOL``
+bounds below are 2-4x those gaps.
 
 With the JAX package's two-view result handed to the port as well (the one
 step whose float32 eigen solve differs), the rest of the facade -- tracking,
@@ -48,6 +50,7 @@ from rumi_slam_tpu_torch.geometry import lie as tlie
 from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
 from rumi_slam_tpu_torch.optim import two_view as ttv
 from rumi_slam_tpu_torch.system import SlamSystem, TrackState
+from rumi_slam_tpu_torch.tracking import tracker as ttracker
 
 from torch_system_drive import jax_draw_stream
 
@@ -93,7 +96,7 @@ def run(package, n_frames, lost_span=None, *, jax_init=False, **tracking):
         slam, attr = JaxSlam(jc), "_next_key"
         inner = slam._next_key
     else:
-        slam, attr, inner = SlamSystem(tc), "_next_draw", jax_draw_stream()
+        slam, attr, inner = SlamSystem(tc, device="cpu"), "_next_draw", jax_draw_stream()
     calls = [0]
 
     def counted():
@@ -143,6 +146,25 @@ def lost_drive():
     # tracker from RECENTLY_LOST to LOST inside the span
     kw = dict(lost_span=(20, 30), reloc_window_s=0.25)
     return pair(run("jax", 40, **kw), run("port", 40, **kw))
+
+
+@pytest.fixture(scope="module")
+def reloc_drive():
+    # featureless frames 12..13, well inside the 3 s relocalisation window:
+    # frame 14 arrives in RECENTLY_LOST with features
+    calls = []
+    real = ttracker.relocalize_map
+
+    def counted(*a, **kw):
+        tr, ref = real(*a, **kw)
+        calls.append(int(tr.n_inliers))
+        return tr, ref
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttracker, "relocalize_map", counted)
+        d = pair(run("jax", 17, lost_span=(12, 14)), run("port", 17, lost_span=(12, 14)))
+    d["port_relocalize_map_inliers"] = calls
+    return d
 
 
 def shared_keyframes(d):
@@ -219,16 +241,46 @@ def test_lost_span_transitions(lost_drive):
     assert abs(d["tate"] - d["jate"]) < ATE_ATOL, (d["tate"], d["jate"])
 
 
+def test_relocalization_inside_the_window(reloc_drive):
+    """Both packages lose track on the span's first frame, stay
+    RECENTLY_LOST through it, and relocalise against the map on the first
+    frame with features: the port's facade reaches ``relocalize_map`` (the
+    lost-span drive above never does), which recovers the pose."""
+    d = reloc_drive
+    s = d["tstates"]
+    assert s == d["jstates"]
+    assert s[12:14] == ["RECENTLY_LOST"] * 2 and s[14:] == ["OK"] * 3
+    for slam in (d["jax"], d["port"]):
+        assert slam.stats["n_reloc"] == 1 and slam.stats["n_new_maps"] == 0
+        assert slam.stats["n_lost_frames"] == 2
+    assert len(d["port_relocalize_map_inliers"]) == 1
+    assert d["port_relocalize_map_inliers"][0] >= d["port"].cfg.tracking.min_track_inliers
+    assert abs(d["tate"] - d["jate"]) < ATE_ATOL, (d["tate"], d["jate"])
+
+
+def test_default_device_is_the_card():
+    """``SlamSystem()`` asks for the card: on a host without one it raises
+    and does not build on the CPU; ``device="cpu"`` is the explicit way."""
+    if torch.cuda.is_available():
+        assert SlamSystem(tiny_config()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SlamSystem(tiny_config())
+    assert SlamSystem(tiny_config(), device="cpu").device.type == "cpu"
+
+
 def test_unported_branches_raise():
     tc = tiny_config()
     with pytest.raises(NotImplementedError, match="item 11"):
         SlamSystem(dataclasses.replace(tc, mapping=dataclasses.replace(
-            tc.mapping, loop_closing=True)))
+            tc.mapping, loop_closing=True)), device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        SlamSystem(dataclasses.replace(tc, camera=dataclasses.replace(tc.camera, k1=0.1)))
+        SlamSystem(dataclasses.replace(tc, camera=dataclasses.replace(tc.camera, k1=0.1)),
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
-        SlamSystem(dataclasses.replace(tc, camera=dataclasses.replace(tc.camera, model="kb8")))
-    slam = SlamSystem(tc)
+        SlamSystem(dataclasses.replace(tc, camera=dataclasses.replace(tc.camera, model="kb8")),
+                   device="cpu")
+    slam = SlamSystem(tc, device="cpu")
     img = torch.zeros((240, 320))
     with pytest.raises(NotImplementedError, match="item 14"):
         slam.track_rgbd(img, img, 0.0)

@@ -8,8 +8,12 @@ the keyframe count and the frame-trajectory ATE: the bounds that phase 6
 holds the port to.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_system_drive.py [--port]
+        [--frames 80 --lost-span 20 22]
 
 ``--port`` also runs the same drive through the port on the CPU.
+``--frames 80 --lost-span 20 22`` is the relocalisation drive of phase 8:
+frames 20..21 render featureless, inside the relocalisation window, and the
+frame after them relocalises against the map.
 
 The parity tests import the helpers below: JAX draws for the port's RANSAC
 (``jax_draw``, ``jax_draw_stream``) and the inputs of the mapping rounds of
@@ -20,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import sys
 import time
 
 import numpy as np
@@ -74,7 +77,7 @@ def mapping_inputs(n_frames=12):
 
     seq = SyntheticSequence(n_frames=n_frames, width=320, height=240, n_points=1500,
                             seed=4, patch=3)
-    slam = SlamSystem(tiny_config())
+    slam = SlamSystem(tiny_config(), device="cpu")
     rounds = []
     real = MW.run_mapping_round
 
@@ -103,7 +106,7 @@ def summarize(states, stats, ate):
             "n_kf": stats["n_kf"], "ate": ate, "states": states, "stats": stats}
 
 
-def run_jax():
+def run_jax(n_frames=N_FRAMES, lost_span=None):
     from rumi_slam_tpu.config import Config
     from rumi_slam_tpu.evaluation import ate
     from rumi_slam_tpu.io.synthetic import SyntheticSequence
@@ -111,8 +114,8 @@ def run_jax():
 
     cfg = drive_config(Config())
     c = cfg.camera
-    seq = SyntheticSequence(n_frames=N_FRAMES, width=c.width, height=c.height,
-                            K=cfg.intrinsics(), seed=SEED)
+    seq = SyntheticSequence(n_frames=n_frames, width=c.width, height=c.height,
+                            K=cfg.intrinsics(), seed=SEED, lost_span=lost_span)
     slam = SlamSystem(cfg)
     states = [slam.track_monocular(seq.frame(i)[0], seq.times[i]).name
               for i in range(len(seq))]
@@ -122,7 +125,7 @@ def run_jax():
     return summarize(states, dict(slam.stats), m["ate"])
 
 
-def run_port():
+def run_port(n_frames=N_FRAMES, lost_span=None):
     import torch
 
     from rumi_slam_tpu_torch.config import Config
@@ -132,9 +135,9 @@ def run_port():
 
     cfg = drive_config(Config())
     c = cfg.camera
-    seq = SyntheticSequence(n_frames=N_FRAMES, width=c.width, height=c.height,
-                            K=cfg.intrinsics(), seed=SEED)
-    slam = SlamSystem(cfg)
+    seq = SyntheticSequence(n_frames=n_frames, width=c.width, height=c.height,
+                            K=cfg.intrinsics("cpu"), seed=SEED, lost_span=lost_span)
+    slam = SlamSystem(cfg, device="cpu")
     states = [slam.track_monocular(seq.frame(i)[0], seq.times[i]).name
               for i in range(len(seq))]
     times, poses = slam.trajectory_of_map()
@@ -144,10 +147,23 @@ def run_port():
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--port", action="store_true",
+                    help="also run the drive through the port on the CPU")
+    ap.add_argument("--frames", type=int, default=N_FRAMES)
+    ap.add_argument("--lost-span", type=int, nargs=2, metavar=("FIRST", "END"),
+                    help="render frames FIRST <= i < END featureless (the relocalisation "
+                         "drive of chip_smoke.py phase 8: --frames 80 --lost-span 20 22)")
+    a = ap.parse_args()
+    span = tuple(a.lost_span) if a.lost_span else None
     t0 = time.perf_counter()
-    print(json.dumps({"package": "rumi_slam_tpu", **run_jax(),
+    print(json.dumps({"package": "rumi_slam_tpu", "lost_span": span,
+                      **run_jax(a.frames, span),
                       "seconds": time.perf_counter() - t0}), flush=True)
-    if "--port" in sys.argv:
+    if a.port:
         t0 = time.perf_counter()
-        print(json.dumps({"package": "rumi_slam_tpu_torch (cpu)", **run_port(),
+        print(json.dumps({"package": "rumi_slam_tpu_torch (cpu)", "lost_span": span,
+                          **run_port(a.frames, span),
                           "seconds": time.perf_counter() - t0}), flush=True)

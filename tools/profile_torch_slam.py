@@ -1,6 +1,6 @@
 """Profile the PyTorch port's monocular SLAM facade on one GPU.
 
-    python -m tools.profile_torch_slam [--frames 60]
+    python -m tools.profile_torch_slam [--frames 60] [--lost-span FIRST END]
 
 Runs the drive of ``chip_smoke.py`` phase 6 (``SlamSystem.track_monocular``
 over ``SyntheticSequence(seed=4)`` at the full ``Config()`` size, loop
@@ -12,6 +12,10 @@ share; per stage, its host time and the kernel time launched in it, both
 under the profiler; the kernel launches, syncs and copies; then the kernels
 with the most device time and the operators with the most host time.  Needs
 a CUDA device.
+
+``--frames 80 --lost-span 20 22`` is the relocalisation drive of
+``chip_smoke.py`` phase 8: the ``relocalize`` stage then shows the kernel time
+of ``tracker.relocalize_map``.
 """
 
 from __future__ import annotations
@@ -55,6 +59,8 @@ def drive(cfg, seq, marked=False):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=60)
+    ap.add_argument("--lost-span", type=int, nargs=2, metavar=("FIRST", "END"),
+                    help="render frames FIRST <= i < END featureless")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slam: no CUDA device")
@@ -63,7 +69,8 @@ def main():
         cfg.mapping, loop_closing=False, overlapped=False))
     c = cfg.camera
     seq = SyntheticSequence(n_frames=a.frames, width=c.width, height=c.height,
-                            K=cfg.intrinsics("cuda"), seed=4, device="cuda")
+                            K=cfg.intrinsics("cuda"), seed=4, device="cuda",
+                            lost_span=tuple(a.lost_span) if a.lost_span else None)
     frames = [seq.frame(i) for i in range(len(seq))]   # render once, outside the timing
     seq.frame = lambda i: frames[i]
 
