@@ -6,8 +6,10 @@
 Drives the port's main paths on the card at the full ``Config()`` size
 (640x480, 8 pyramid levels, 1024 features, max_kf 256, max_pt 16384): the
 per-frame monocular tracking step (``rumi_slam_tpu_torch.step``) and the
-monocular SLAM facade (``rumi_slam_tpu_torch.system.SlamSystem``), in eight
-phases, each of which raises on failure:
+monocular SLAM facade (``rumi_slam_tpu_torch.system.SlamSystem``) with loop
+closing, checkpoints and the rumination pipeline
+(``rumi_slam_tpu_torch.rumination``), in ten phases, each of which raises on
+failure:
 
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: ``csrc/fused_match.cu`` with nvcc into ``build/``;
@@ -53,9 +55,42 @@ phases, each of which raises on failure:
    on the frame that relocalises ``relocalize_map`` runs twice more on CPU
    copies of the map and the features with the same RANSAC draws: given the
    6-point pose hypotheses the card solved it must return the same ``assoc``;
-   solving them itself it must get the same matcher output bit for bit and
-   recover nearly the same pose (``RELOC_POSE_ATOL``) with no feature
-   associated with a different point.
+   solving them itself it must get the same matcher output bit for bit and,
+   where it reaches the inlier gate too, nearly the same pose
+   (``RELOC_POSE_ATOL``) with no feature associated with a different point;
+9. known answers at full width, each also on CPU copies of the same inputs:
+   ``save_map`` -> ``load_map`` of phase 6's map on the card (every field
+   equal, digest stable, a flipped payload byte raises); a 256-vertex pose
+   graph with 2048 edge slots, a drifted far end and one loop edge (drift
+   removed, card within 1e-3 of the CPU); ``verify_loop`` on two keyframes
+   holding one frame's 1024 ORB features with the candidate's points moved
+   by a known Sim(3) (scale within 0.02, inliers above the loop gate, the
+   256 batched 4x4 eigen solves against the CPU's on the same triples);
+   ``close_loop`` and the global BA on phase 6's map (finite, the candidate
+   held, the reprojection cost not higher); and the merge of that map's own
+   copy, moved by a known Sim(3) and brought back as a second submap (``ok``,
+   scale within 0.02, no keyframe left in the copy, fewer valid points,
+   paired poses within 0.05); and the backend's weld of the same map split in
+   two by time, the later half moved by a known Sim(3)
+   (``RuminationBackend._weld_submaps``: one ``relocalize_map``, so one
+   gate-off launch, per source keyframe tried; scale within
+   ``WELD_SCALE_TOL``, every moved keyframe back within ``WELD_POSE_TOL``);
+10. rumination end to end: a 110-frame sweep with six featureless frames and
+    a 0.1 s relocalisation window, loop closing on: tracking is lost, a second
+    submap opens, the coordinator assembles the bundle, a backend builds the
+    back submap, and the double merge plus a dense global BA leave one map.
+    Four runs: the clear-view backend inline (bundle images swapped for
+    clean renderings before the package's ``build()``), the same through
+    ``AsyncRuminationShard`` (``last_error`` must stay None), the shard again
+    with the live system's local mapping on its worker thread (``Config()``'s
+    own setting; its result depends on the threads' timing, so it must merge
+    into one finite map across the gap and its ATE is printed, not bounded),
+    and the package's own backend, which must fail as it does in the JAX package
+    (the synthetic loss is a flat image).  The states up to the new submap,
+    the OK share and the keyframe ATE are held to the JAX package's run of
+    the same drive; the gated kernel must launch at least once per frame
+    tracked in OK by the live and the offline system, the gate-off kernel
+    once per ``relocalize_map`` call.
 
 ``python3 chip_smoke.py --sweep-blocks-per-sm`` runs phases 1-2 and then
 times both instantiations with the grid planned for 2 to 64 blocks an SM
@@ -70,6 +105,7 @@ result, when no CUDA device is present or any phase fails.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -593,7 +629,7 @@ def phase_slam_drive():
         raise RuntimeError(f"ATE {m['ate']} m above {r['bounds']['ate_max_m']} m")
     if launches < tracked:
         raise RuntimeError(f"{launches} kernel launches for {tracked} frames tracked in OK")
-    return r
+    return r, slam
 
 
 def phase_overlapped_mapping():
@@ -730,6 +766,8 @@ def phase_reloc_drive():
                   n_inliers=[int(tr.n_inliers), int(tr_c.n_inliers)],
                   ref_kf=[int(last["ref"]), int(ref_c)],
                   pose_diff=float((tr.pose.cpu() - tr_c.pose).abs().max()))
+    gate = cfg.tracking.min_track_inliers
+    on_cpu["own_hypotheses_recovered"] = on_cpu["n_inliers"][1] >= gate
     ok = states.count("OK")
     end = RELOC_SPAN[1]
     r = dict(frames=len(states), lost_span=list(RELOC_SPAN), ok_frames=ok,
@@ -752,14 +790,22 @@ def phase_reloc_drive():
                            f"{states[end:end + 5]}, n_reloc {slam.stats['n_reloc']}")
     if slam.stats["n_new_maps"] != 0 or "LOST" in states:
         raise RuntimeError("the drive gave the map up instead of relocalising")
+    # PnP keeps the consensus of its best raw 6-point hypothesis, and about four
+    # candidates in ten are inliers here: whether one of the hypotheses is clean
+    # turns on the last digits of the float32 eigen solves, which differ between
+    # the card's solver and LAPACK.  Solving its own, the CPU run can therefore
+    # miss the consensus the card found (8 inliers against the card's 30 seen);
+    # it is held to the card's pose when it reaches the inlier gate itself.
     if (not on_cpu["matcher_output_equal"]
             or on_cpu["n_candidates"][0] != on_cpu["n_candidates"][1]
-            or min(on_cpu["n_inliers"]) < cfg.tracking.min_track_inliers
+            or on_cpu["n_inliers"][0] < gate
+            or on_cpu["given_card_hypotheses"]["n_inliers"] != on_cpu["n_inliers"][0]
             or on_cpu["given_card_hypotheses"]["assoc_rows_differing"]
             or on_cpu["given_card_hypotheses"]["pose_diff"] > POSE_ATOL
             or on_cpu["given_card_hypotheses"]["ref_kf"] != on_cpu["ref_kf"][0]
-            or on_cpu["assoc_rows_conflicting"]
-            or on_cpu["pose_diff"] > RELOC_POSE_ATOL):
+            or (on_cpu["own_hypotheses_recovered"]
+                and (on_cpu["assoc_rows_conflicting"]
+                     or on_cpu["pose_diff"] > RELOC_POSE_ATOL))):
         raise RuntimeError(f"relocalize_map on the card and on the CPU differ: {on_cpu}")
     if r["ok_share"] < r["bounds"]["ok_share_min"]:
         raise RuntimeError(f"OK share {r['ok_share']} below {r['bounds']['ok_share_min']}")
@@ -769,6 +815,558 @@ def phase_reloc_drive():
         raise RuntimeError(f"{launches['fused_match']} kernel launches for "
                            f"{tracked_in_ok(slam)} frames tracked in OK")
     return r
+
+
+def _ms(fn):
+    """(result, host ms of ``fn()`` with the device drained before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def pose_graph_chain(n_kf, max_edges, device, drift=0.3):
+    """The drifted chain of ``tests/test_components.py`` at full width:
+    ``n_kf`` vertices 0.5 apart, the far end translated by ``drift``,
+    sequential edges and one loop edge (0, n_kf - 1, weight 3) measured from
+    the truth, padded with zero-weight (0, 0) edges to ``max_edges``.
+    Returns (truth [n_kf, 7], S_est, edges, fixed)."""
+    import torch
+
+    from rumi_slam_tpu_torch.geometry import lie
+    from rumi_slam_tpu_torch.optim import pose_graph
+
+    truth = torch.zeros((n_kf, 7))
+    truth[:, 0] = 1.0
+    truth[:, 4] = 0.5 * torch.arange(n_kf)
+    est = truth.clone()
+    est[n_kf - 1, 4] += drift
+    S_truth = lie.sim3_from_se3(truth)
+    ei = torch.zeros(max_edges, dtype=torch.int32)
+    ej = torch.zeros(max_edges, dtype=torch.int32)
+    w = torch.zeros(max_edges)
+    ei[: n_kf - 1], ej[: n_kf - 1] = torch.arange(n_kf - 1), torch.arange(1, n_kf)
+    w[: n_kf - 1] = 1.0
+    ei[n_kf - 1], ej[n_kf - 1], w[n_kf - 1] = 0, n_kf - 1, 3.0
+    S_m = pose_graph.relative_sim3(S_truth[ei.long()], S_truth[ej.long()])
+    edges = pose_graph.PoseGraphEdges(*(x.to(device) for x in (ei, ej, S_m, w)))
+    fixed = torch.zeros(n_kf, dtype=torch.bool)
+    fixed[0] = True
+    return truth.to(device), lie.sim3_from_se3(est).to(device), edges, fixed.to(device)
+
+
+def two_keyframe_loop_map(cfg, S_true, device):
+    """Two keyframes holding one real frame's ORB features at full width:
+    the query sees the scene at its true place, the candidate sees the same
+    pixels with its points moved by ``S_true^-1`` (the construction of
+    ``tests/test_rumination.py::build_two_submaps``).  Returns (ms, K)."""
+    import torch
+
+    from rumi_slam_tpu_torch import step as S
+    from rumi_slam_tpu_torch.geometry import lie
+    from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from rumi_slam_tpu_torch.mapstate import map_state as M
+    from rumi_slam_tpu_torch.rumination.merge import correct_poses
+
+    c = cfg.camera
+    K = cfg.intrinsics(device)
+    seq = SyntheticSequence(n_frames=2, width=c.width, height=c.height, K=K, seed=7,
+                            device=device)
+    tstep = S.TrackingStep(cfg, K).to(device)
+    img, depth, _ = seq.frame_rgbd(0)
+    feats = tstep.extractor(img)
+    T0 = seq.poses_gt[0]
+    seeded = S.seed_map_from_depth(feats, depth, K, T0, cfg)
+    n = feats.capacity
+    X, ok = seeded.pt_xyz[:n], seeded.pt_valid[:n]
+    ms = M.empty(cfg.mapping.max_kf, n, cfg.mapping.max_pt, device)
+    ms, pid0 = M.add_points(ms, X, feats.desc, ok, 0, octave=feats.octave, angle=feats.angle)
+    ms, pid1 = M.add_points(ms, lie.sim3_apply(lie.sim3_inverse(S_true), X), feats.desc, ok, 1,
+                            octave=feats.octave, angle=feats.angle)
+    ms, _ = M.insert_keyframe(ms, T0, feats, 0.0, pid0)
+    # the same camera in the candidate's world: T0 o S_true, scale divided out
+    ms, _ = M.insert_keyframe(ms, correct_poses(T0, lie.sim3_inverse(S_true)), feats, 1.0, pid1)
+    return ms, K
+
+
+def gba_cost(K, prob):
+    """Total robust reprojection cost of a compacted global-BA problem."""
+    from rumi_slam_tpu_torch.optim import ba
+
+    poses, points, cam_idx, pt_idx, uv, conf = prob["args"][:6]
+    return float(ba._problem_terms(K, poses, points, cam_idx.long(), pt_idx.long(), uv, conf)[4])
+
+
+def to_cpu(ms):
+    return type(ms)(*(x.cpu() for x in ms))
+
+
+def phase_known_answers(slam):
+    """Phase 9: checkpoint, pose graph, loop verification and closing, global
+    BA and the merge, at full width, each against an answer known
+    beforehand.  ``slam``: phase 6's system, its map built on the card."""
+    import os
+    import tempfile
+
+    import torch
+
+    from rumi_slam_tpu_torch.geometry import lie
+    from rumi_slam_tpu_torch.mapstate import checkpoint
+    from rumi_slam_tpu_torch.mapstate import map_state as M
+    from rumi_slam_tpu_torch.optim import pose_graph, ransac
+    from rumi_slam_tpu_torch.rumination import cloud_map, coordinator
+    from rumi_slam_tpu_torch.rumination import merge as merge_mod
+    from rumi_slam_tpu_torch.system import SlamSystem
+    from rumi_slam_tpu_torch.tracking import local_mapping, loop_closing
+
+    t_phase = time.perf_counter()
+    cfg, K, ms6 = slam.cfg, slam.K, slam.ms
+    out = {}
+
+    # --- checkpoint: save -> load on the card, digest, tampering
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "atlas.ckpt")
+        _, save_ms = _ms(lambda: slam.save_map(path))
+        digest = checkpoint.save(slam.ms, os.path.join(d, "again.ckpt"))
+        with open(path, "rb") as f:
+            raw = bytearray(f.read())
+        hlen = int.from_bytes(raw[:8], "little")
+        header = json.loads(raw[8:8 + hlen].decode())
+        other = SlamSystem(cfg, device="cuda")
+        _, load_ms = _ms(lambda: other.load_map(path))
+        unequal = [k for k, a, b in zip(ms6._fields, ms6, other.ms)
+                   if not (b.is_cuda and a.dtype == b.dtype and torch.equal(a, b))]
+        raw[-64] ^= 0x01
+        with open(path, "wb") as f:
+            f.write(bytes(raw))
+        try:
+            checkpoint.load(path)
+            tamper_raised = False
+        except ValueError:
+            tamper_raised = True
+    out["checkpoint"] = dict(bytes=len(raw), save_ms=save_ms, load_ms=load_ms,
+                             fields_unequal=unequal, digest_stable=header["sha256"] == digest,
+                             format_version=header["format_version"],
+                             tamper_raised=tamper_raised,
+                             n_maps_host=other.n_maps_host, state=other.state.name)
+    if unequal or not out["checkpoint"]["digest_stable"] or not tamper_raised:
+        raise RuntimeError(f"checkpoint round trip failed: {out['checkpoint']}")
+
+    # --- pose graph at full width: 256 vertices, 2048 edge slots
+    n_kf = cfg.mapping.max_kf
+    truth, S_est, edges, fixed = pose_graph_chain(n_kf, 2048, "cuda")
+    S_opt, pg_ms = _ms(lambda: pose_graph.optimize_pose_graph(S_est, edges, fixed, n_iters=10))
+    S_cpu = pose_graph.optimize_pose_graph(
+        S_est.cpu(), pose_graph.PoseGraphEdges(*(x.cpu() for x in edges)), fixed.cpu(),
+        n_iters=10)
+    out["pose_graph"] = dict(
+        vertices=n_kf, edge_slots=2048, solve_size=7 * n_kf, ms=pg_ms,
+        drift_left=float((S_opt[n_kf - 1, 4:7] - truth[n_kf - 1, 4:7]).norm()),
+        card_vs_cpu=float((S_opt.cpu() - S_cpu).abs().max()))
+    if not (out["pose_graph"]["drift_left"] < 0.02 and out["pose_graph"]["card_vs_cpu"] < 1e-3):
+        raise RuntimeError(f"pose graph: {out['pose_graph']}")
+
+    # --- verify_loop against a known Sim(3); 256 batched 4x4 eigh on the card
+    S_true = lie.sim3_make(lie.so3_exp(torch.tensor([0.05, -0.1, 0.08])),
+                           torch.tensor([0.5, -0.3, 0.9]), 1.4).to("cuda")
+    ms2, _ = two_keyframe_loop_map(cfg, S_true, "cuda")
+    drawn = []
+    base = ransac.sampler(torch.Generator().manual_seed(9))
+
+    def draw(logits, shape):
+        drawn.append(base(logits, shape))
+        return drawn[-1]
+
+    (S_v, n_inl, inl), verify_ms = _ms(lambda: loop_closing.verify_loop(draw, K, ms2, 0, 1))
+    S_vc, n_inl_c, inl_c = loop_closing.verify_loop_from(drawn[0], K.cpu(), to_cpu(ms2), 0, 1)
+    out["verify_loop"] = dict(
+        features_with_points=int((ms2.kf_point[0] >= 0).sum()), hypotheses=list(drawn[0].shape),
+        n_inliers=int(n_inl), scale=float(lie.sim3_scale(S_v)), scale_true=1.4, ms=verify_ms,
+        sim3_error=float((S_v - S_true).abs().max()),
+        cpu_same_triples=dict(n_inliers=int(n_inl_c),
+                              inlier_rows_differing=int((inl.cpu() != inl_c).sum()),
+                              sim3_diff=float((S_v.cpu() - S_vc).abs().max())))
+    if not (abs(out["verify_loop"]["scale"] - 1.4) < 0.02
+            and int(n_inl) >= cfg.mapping.loop_min_inliers
+            and out["verify_loop"]["cpu_same_triples"]["sim3_diff"] < 1e-3):
+        raise RuntimeError(f"verify_loop: {out['verify_loop']}")
+
+    # --- close_loop and global BA on the driven map
+    q, cand = int(ms6.n_kf) - 1, 0
+    S_drift = lie.sim3_exp(torch.tensor([0.004, -0.006, 0.005, 0.02, -0.01, 0.015, 0.02],
+                                        device="cuda"))
+    closed, close_ms = _ms(lambda: loop_closing.close_loop(ms6, K, q, cand, S_drift))
+    prob = local_mapping.gba_problem(closed, 0)
+    cost0 = gba_cost(K, prob)
+    after, gba_ms = _ms(lambda: local_mapping.global_bundle_adjustment(
+        closed, K, 0, n_iters=cfg.mapping.loop_gba_iters))
+    cost1 = gba_cost(K, local_mapping.gba_problem(after, 0))
+    out["close_loop_gba"] = dict(
+        keyframes=int(ms6.kf_valid.sum()), query=q, candidate=cand, close_loop_ms=close_ms,
+        candidate_moved=float((closed.kf_pose[cand] - ms6.kf_pose[cand]).abs().max()),
+        query_moved=float((closed.kf_pose[q] - ms6.kf_pose[q]).abs().max()),
+        gba=dict(C=prob["C"], P=prob["P"], observations=int(prob["n_obs"]),
+                 iters=cfg.mapping.loop_gba_iters, ms=gba_ms, cost_before=cost0,
+                 cost_after=cost1))
+    finite = all(bool(torch.isfinite(x).all()) for x in (closed.kf_pose, closed.pt_xyz,
+                                                         after.kf_pose, after.pt_xyz))
+    if not (finite and cost1 <= cost0 and out["close_loop_gba"]["candidate_moved"] < 1e-6):
+        raise RuntimeError(f"close_loop / global BA: {out['close_loop_gba']}")
+
+    # --- the merge against a known Sim(3): the driven map's copy, moved,
+    # comes back as a second submap and is merged into the first
+    S_known = lie.sim3_make(lie.so3_exp(torch.tensor([0.03, 0.08, -0.05])),
+                            torch.tensor([0.4, 0.2, -0.6]), 1.3).to("cuda")
+    S_inv = lie.sim3_inverse(S_known)
+    cm = cloud_map.from_map_state(ms6, 0)
+    cm = cm._replace(pt_xyz=lie.sim3_apply(S_inv, cm.pt_xyz),
+                     kf_pose=merge_mod.correct_poses(cm.kf_pose, S_inv))
+    ms_in, kf_ids = coordinator.insert_cloud_map(ms6._replace(n_maps=ms6.n_maps + 1), cm, 1)
+    mcfg = cfg.merge
+    matches = merge_mod.match_kfs_by_time(ms_in.kf_time, ms_in.kf_valid, ms_in.kf_map_id, 0, 1,
+                                          max_pairs=mcfg.max_match_kf, tol=mcfg.time_tolerance_s)
+    drawn = []
+    base = ransac.sampler(torch.Generator().manual_seed(10))   # ``draw`` records into ``drawn``
+    (merged, ok, info), merge_ms = _ms(
+        lambda: merge_mod.merge_submaps(ms_in, K, 1, 0, mcfg, draw))
+    replay = iter(list(drawn))
+    _, ok_c, info_c = merge_mod.merge_submaps(to_cpu(ms_in), K.cpu(), 1, 0, mcfg,
+                                              lambda logits, shape: next(replay))
+    pair_err = 0.0
+    if ok:
+        m = matches.valid
+        Ta = merged.kf_pose[matches.dst_kf[m].long()]
+        Tb = merged.kf_pose[matches.src_kf[m].long()]
+        pair_err = float(lie.se3_log(lie.se3_compose(Ta, lie.se3_inverse(Tb))).norm(dim=-1).max())
+    out["merge"] = dict(
+        copy_keyframes=int((kf_ids >= 0).sum()), ms=merge_ms, ok=bool(ok), info=info,
+        scale_known=1.3, kf_left_in_copy=int(M.map_kf_count(merged, 1)),
+        points_before=int(ms_in.pt_valid.sum()), points_after=int(merged.pt_valid.sum()),
+        max_pair_se3_log=pair_err, cpu_same_triples=dict(ok=bool(ok_c), info=info_c))
+    if not (ok and ok_c and abs(info["scale"] - 1.3) < 0.02
+            and abs(info["scale"] - info_c["scale"]) < 1e-3
+            and out["merge"]["kf_left_in_copy"] == 0
+            and out["merge"]["points_after"] < out["merge"]["points_before"]
+            and pair_err < 0.05):
+        raise RuntimeError(f"known-answer merge: {out['merge']}")
+    out["weld"] = known_answer_weld(cfg, K, ms6)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(phase="known_answers", **out)
+    return out
+
+
+def known_answer_weld(cfg, K, ms):
+    """The backend's weld against a known Sim(3): the driven map split in two
+    by time (later keyframes, and the points they were first seen from, become
+    submap 1, moved by ``S_known^-1``), then ``_weld_submaps(dst=0, src=1)``
+    must bring them back.  Every weld try is one ``relocalize_map``, i.e. one
+    launch of the gate-off kernel over the whole observation bank."""
+    import types
+
+    import torch
+
+    from rumi_slam_tpu_torch.geometry import lie
+    from rumi_slam_tpu_torch.mapstate import map_state as M
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+    from rumi_slam_tpu_torch.rumination.backend import RuminationBackend
+    from rumi_slam_tpu_torch.rumination.merge import correct_poses
+
+    S_known = lie.sim3_make(lie.so3_exp(torch.tensor([-0.04, 0.06, 0.03])),
+                            torch.tensor([-0.3, 0.25, 0.5]), 1.3).to("cuda")
+    S_inv = lie.sim3_inverse(S_known)
+    rows = torch.nonzero(ms.kf_valid).flatten()
+    t_split = ms.kf_time[rows].median()
+    late_kf = ms.kf_valid & (ms.kf_time > t_split)
+    late_pt = ms.pt_valid & late_kf[ms.pt_ref_kf.clamp_min(0).long()] & (ms.pt_ref_kf >= 0)
+    split = ms._replace(
+        kf_map_id=torch.where(late_kf, 1, ms.kf_map_id).to(ms.kf_map_id.dtype),
+        pt_map_id=torch.where(late_pt, 1, ms.pt_map_id).to(ms.pt_map_id.dtype),
+        kf_pose=torch.where(late_kf[:, None], correct_poses(ms.kf_pose, S_inv), ms.kf_pose),
+        pt_xyz=torch.where(late_pt[:, None], lie.sim3_apply(S_inv, ms.pt_xyz), ms.pt_xyz),
+        n_maps=ms.n_maps + 1)
+    backend = RuminationBackend(cfg, device="cuda")
+    before = fm.match_bank.launches
+    welded, weld_ms = _ms(lambda: backend._weld_submaps(
+        types.SimpleNamespace(ms=split, K=K), 0, 1))
+    launches = fm.match_bank.launches - before
+    tries = backend.last_weld_tries["pnp"]
+    r = dict(keyframes=[int((ms.kf_valid & ~late_kf).sum()), int(late_kf.sum())],
+             points=[int((ms.pt_valid & ~late_pt).sum()), int(late_pt.sum())],
+             tries=tries, launches_match_bank=launches, ms=weld_ms,
+             info=backend.last_weld_info, scale_known=1.3, welded=welded is not None)
+    if welded is not None:
+        rel = lie.se3_compose(welded.kf_pose[late_kf], lie.se3_inverse(ms.kf_pose[late_kf]))
+        depth = ms.pt_xyz[late_pt].norm(dim=-1).clamp_min(1e-6)
+        r.update(kf_left_in_src=int(M.map_kf_count(welded, 1)),
+                 max_kf_se3_log=float(lie.se3_log(rel).norm(dim=-1).max()),
+                 max_point_rel_err=float(((welded.pt_xyz[late_pt] - ms.pt_xyz[late_pt])
+                                          .norm(dim=-1) / depth).max()))
+    if not (welded is not None and launches == len(tries) and len(tries) >= 2
+            and abs(r["info"]["scale"] - 1.3) < WELD_SCALE_TOL and r["kf_left_in_src"] == 0
+            and r["max_kf_se3_log"] < WELD_POSE_TOL):
+        raise RuntimeError(f"known-answer weld: {r}")
+    return r
+
+
+# The rumination scenario of phase 10 and what the JAX package does on it at
+# the same widths (CPU, `JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/torch_rumination_drive.py --full [--own-backend]`).  Clear-view
+# backend: states NN, 43 x OK, RECENTLY_LOST on 45-47, a new submap on frame
+# 48, OK again from 53 (100 of 110 OK); bundle of 20 frames (8 lost raw, 1
+# sampled), 24.576 MB; 18 cloud keyframes; cloud merge 10 keyframe matches /
+# 4319 pairs / inlier ratio 0.674 / scale 1.082, back merge 5 / 1182 / 0.183 /
+# 0.393; dense global BA; one map of 50 keyframes; keyframe ATE 0.030678 m.
+# Own backend: the same bundle, offline states NOOOOOOOOORRRRRRRRNN,
+# `backend_failed`.  The ATE bound is the JAX end-to-end test's own, 0.3 m.
+# the weld fixes its scale from the baselines between PnP poses, each good to
+# a few millimetres on baselines of decimetres: a few percent, not the merge's
+# 0.02 (1.271 for 1.3 on an H100, six anchors of 512 down to 15 inliers)
+WELD_SCALE_TOL = 0.08
+WELD_POSE_TOL = 0.05
+RUMI_FRAMES = 110
+RUMI_SEED = 11
+RUMI_LOST_SPAN = (45, 51)
+JAX_RUMI_OK_SHARE = 100 / 110
+JAX_RUMI_NEW_MAP_FRAME = 48
+JAX_RUMI_ATE_M = 0.030678
+RUMI_ATE_MAX_M = 0.3
+_LETTER = {"NOT_INITIALIZED": "N", "OK": "O", "RECENTLY_LOST": "R", "LOST": "L"}
+
+
+def rumination_drive():
+    """``tests/torch_rumination_drive.py``: the scenario's configuration,
+    sequence and clear-view backend, shared with the CPU drives of either
+    package (the module itself imports neither)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_rumination_drive
+
+    return torch_rumination_drive
+
+
+def rumination_config(overlapped=False):
+    """``Config()`` widths with ``tiny_config()``'s time and count gates (they
+    are depths: a 110-frame drive cannot meet the defaults' 40 keyframes and
+    3 s), ``reloc_window_s=0.1`` so that the six featureless frames are a
+    real loss, loop closing on, synchronous mapping unless ``overlapped``
+    (``Config()``'s own setting: local mapping on the worker thread)."""
+    import dataclasses
+
+    from rumi_slam_tpu_torch import config
+
+    cfg = rumination_drive().scenario_config(config, full=True)
+    return dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping,
+                                                                overlapped=overlapped))
+
+
+def rumination_sequence(cfg, lost_span):
+    from rumi_slam_tpu_torch.io import synthetic
+
+    return rumination_drive().make_sequence(synthetic, cfg, seed=RUMI_SEED, frames=RUMI_FRAMES,
+                                            lost_span=lost_span, device="cuda")
+
+
+def clear_view_backend(cfg, clean_seq, clear_view=True):
+    """A ``RuminationBackend`` on the card that times its builds
+    (``build_ms``) and, with ``clear_view``, first swaps each bundle image for
+    ``clean_seq``'s rendering at the same timestamp; everything else is the
+    package's own ``build()``.  The synthetic loss renders a flat image, which
+    no backend can see through; a dense backend sees degraded frames, and the
+    clean renderings stand in for that."""
+    import torch
+
+    from rumi_slam_tpu_torch.rumination import sampler
+    from rumi_slam_tpu_torch.rumination.backend import RuminationBackend
+
+    class TimedBackend(RuminationBackend):
+        build_ms = None
+
+        def build(self, bundle, anchor_times=(), anchor_split=None):
+            t0 = time.perf_counter()
+            try:
+                return super().build(bundle, anchor_times=anchor_times,
+                                     anchor_split=anchor_split)
+            finally:
+                torch.cuda.current_stream().synchronize()
+                self.build_ms = (time.perf_counter() - t0) * 1e3
+
+    cls = (rumination_drive().clear_view_backend(TimedBackend, clean_seq, sampler)
+           if clear_view else TimedBackend)
+    return cls(cfg, device="cuda")
+
+
+def clear_view_coordinator(slam, cfg, clean_seq):
+    """A synchronous ``RuminationCoordinator`` on ``slam`` with the clear-view
+    backend (``tools/profile_torch_slam.py --ruminate`` drives it)."""
+    from rumi_slam_tpu_torch.rumination.coordinator import RuminationCoordinator
+
+    return RuminationCoordinator(slam, cfg, backend=clear_view_backend(cfg, clean_seq))
+
+
+def rumination_run(cfg, seq, clean_seq, *, mode):
+    """One drive of the scenario on the card.  ``mode``: ``"sync"`` (clear-view
+    backend inline), ``"async"`` (the same through ``AsyncRuminationShard``) or
+    ``"async_overlapped"`` (the shard again, and the live system's local
+    mapping on its worker thread, ``Config()``'s own setting: three host
+    threads on one card) or ``"own"`` (the package's backend unchanged; stops
+    at the first history row).  The backend's offline system always maps
+    inline.  With overlapped mapping keyframes are made only while the worker
+    is idle, so the live maps hold about half as many and the result depends
+    on the threads' timing: that run must lose track, open its submap, merge
+    into one finite map that spans the gap and raise nothing; its ATE is
+    printed beside the bound and not required to meet it.  Returns the summary
+    dict; raises if a requirement fails."""
+    import torch
+
+    from rumi_slam_tpu_torch.evaluation import ate
+    from rumi_slam_tpu_torch.mapstate import map_state as M
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+    from rumi_slam_tpu_torch.rumination import backend as backend_mod
+    from rumi_slam_tpu_torch.rumination.coordinator import RuminationCoordinator
+    from rumi_slam_tpu_torch.rumination.remote import AsyncRuminationShard
+    from rumi_slam_tpu_torch.system import SlamSystem
+    from rumi_slam_tpu_torch.tracking import local_mapping, tracker
+
+    offline = []          # the backend's offline systems, one per build
+    reloc_calls = [0]
+    gba_sizes = []
+
+    class RecordingSlam(SlamSystem):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.states = []
+            offline.append(self)
+
+        def track_monocular(self, img, t):
+            st = super().track_monocular(img, t)
+            self.states.append(_LETTER[st.name])
+            return st
+
+    relocalize_map, gba = tracker.relocalize_map, local_mapping.gba_problem
+
+    def counted_reloc(*a, **kw):
+        reloc_calls[0] += 1
+        return relocalize_map(*a, **kw)
+
+    def sized_gba(ms, map_id):
+        prob = gba(ms, map_id)
+        if prob is not None:
+            gba_sizes.append(dict(C=prob["C"], P=prob["P"], observations=int(prob["n_obs"])))
+        return prob
+
+    overlapped = mode == "async_overlapped"
+    if overlapped:
+        cfg = rumination_config(overlapped=True)
+    slam = SlamSystem(cfg, device="cuda")
+    backend = clear_view_backend(cfg, clean_seq, clear_view=mode != "own")
+    shard = AsyncRuminationShard(cfg, backend=backend) if mode.startswith("async") else None
+    coord = RuminationCoordinator(slam, cfg, backend=backend, async_shard=shard)
+    states, in_flight = [], 0
+    # the main path: the launch counters start at 0 here
+    fm.fused_match.launches = 0
+    fm.match_bank.launches = 0
+    backend_mod.SlamSystem = RecordingSlam
+    tracker.relocalize_map, local_mapping.gba_problem = counted_reloc, sized_gba
+    t0 = time.perf_counter()
+    try:
+        for i in range(len(seq)):
+            states.append(_LETTER[slam.track_monocular(*seq.frame(i)).name])
+            if shard is not None and shard.busy:
+                in_flight += 1
+            coord.maybe_ruminate()
+            if mode == "own" and coord.history:
+                break
+        deadline = time.time() + 300
+        while shard is not None and (shard.busy or coord._pending is not None):
+            if time.time() > deadline:
+                raise RuntimeError("the asynchronous build did not finish in 300 s")
+            coord.maybe_ruminate()
+            time.sleep(0.02)
+        slam.sync_mapping()
+    finally:
+        if slam.mapper is not None:
+            slam.mapper.shutdown()
+        backend_mod.SlamSystem = SlamSystem
+        tracker.relocalize_map, local_mapping.gba_problem = relocalize_map, gba
+        if shard is not None:
+            shard.shutdown()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_match": fm.fused_match.launches, "match_bank": fm.match_bank.launches}
+    if shard is not None and shard.last_error is not None:
+        raise RuntimeError("the asynchronous backend build raised") from shard.last_error
+
+    ms = slam.ms
+    tracked = tracked_in_ok(slam) + sum(tracked_in_ok(s) for s in offline)
+    stage = slam.timer.stats()
+    r = dict(mode=mode, overlapped_mapping=cfg.mapping.overlapped, frames=len(states),
+             states="".join(states),
+             ok_share=states.count("O") / len(states), stats=slam.stats,
+             history=coord.history,
+             kf_per_map=[int(M.map_kf_count(ms, m)) for m in range(slam.n_maps_host)],
+             backend_states=["".join(s.states) for s in offline],
+             backend_build_ms=backend.build_ms, last_weld_tries=backend.last_weld_tries,
+             gba_problems=gba_sizes, frames_tracked_in_flight=in_flight,
+             launches_fused_match=launches["fused_match"],
+             launches_match_bank=launches["match_bank"], tracked_in_ok=tracked,
+             relocalize_map_calls=reloc_calls[0], wall_s=wall,
+             stage_ms={k: stage[k] for k in stage if k.startswith(("ruminate", "loop"))})
+    first_lost = r["states"].find("R")
+    new_map = r["states"].find("N", first_lost)
+    r["first_lost_frame"], r["new_map_frame"] = first_lost, new_map
+
+    def need(cond, what):
+        if not cond:
+            emit(phase="rumination", failed=what, **r)
+            raise RuntimeError(f"rumination ({mode}): {what}")
+
+    need(first_lost == RUMI_LOST_SPAN[0] and "O" in r["states"][:first_lost],
+         "tracking was not lost on the span's first frame")
+    need(slam.stats["n_new_maps"] >= 1
+         and new_map in (JAX_RUMI_NEW_MAP_FRAME, JAX_RUMI_NEW_MAP_FRAME + 1),
+         f"no new submap on frame {JAX_RUMI_NEW_MAP_FRAME} or the next")
+    need(len(coord.history) == 1 and "bundle_size" in coord.history[0], "no bundle assembled")
+    need(launches["fused_match"] >= tracked,
+         f"{launches['fused_match']} gated launches for {tracked} frames tracked in OK")
+    need(launches["match_bank"] == reloc_calls[0],
+         f"{launches['match_bank']} gate-off launches for {reloc_calls[0]} relocalize_map calls")
+    row = coord.history[0]
+    if mode == "own":
+        need(row["result"] == "backend_failed", f"expected backend_failed, got {row['result']}")
+        return r
+    need(r["ok_share"] >= JAX_RUMI_OK_SHARE - 0.05, f"OK share {r['ok_share']}")
+    need(row["result"] == "merged" and row.get("gba") == "dense", f"result {row.get('result')}")
+    need(row["cloud_merge"]["n_kf_matches"] >= 2 and row["back_merge"]["n_kf_matches"] >= 2,
+         "a merge had fewer than 2 keyframe matches")
+    need(sum(r["kf_per_map"][1:]) == 0 and r["kf_per_map"][0] == int(ms.kf_valid.sum()),
+         f"keyframes per map {r['kf_per_map']}")
+    kt, kp = slam.keyframe_trajectory()
+    gt = torch.stack(seq.poses_gt).cpu().numpy()
+    m = ate.evaluate_trajectory(kt, kp, seq.times, gt)
+    r.update(kf_ate_m=float(m["ate"]), kf_span_s=[float(kt.min()), float(kt.max())],
+             jax_kf_ate_m=JAX_RUMI_ATE_M, ate_max_m=RUMI_ATE_MAX_M)
+    need(np.isfinite(kp).all() and kt.min() < seq.times[40] and kt.max() > seq.times[60],
+         "the merged trajectory does not span the gap")
+    r["ate_within_bound"] = bool(m["ate"] <= RUMI_ATE_MAX_M)
+    need(np.isfinite(m["ate"]) and (overlapped or r["ate_within_bound"]),
+         f"keyframe ATE {m['ate']} m above {RUMI_ATE_MAX_M} m")
+    return r
+
+
+def phase_rumination():
+    """Phase 10: loss -> back submap -> double merge on the card, four runs."""
+    cfg = rumination_config()
+    seq = rumination_sequence(cfg, RUMI_LOST_SPAN)
+    clean = rumination_sequence(cfg, None)
+    runs = {}
+    for mode in ("sync", "async", "async_overlapped", "own"):
+        runs[mode] = rumination_run(cfg, seq, clean, mode=mode)
+        emit(phase="rumination", **runs[mode])
+    return runs
 
 
 def kernel_entry(name, shape_result, launches, launches_by_path, all_results):
@@ -831,24 +1429,39 @@ def main():
         sweep_blocks_per_sm()
         print(smi, flush=True)
         return 0
-    gated, bank = phase_kernel()
-    main_path = phase_main_path()
-    phase_tracked_sequence()
-    drive = phase_slam_drive()
-    overlapped = phase_overlapped_mapping()
-    reloc = phase_reloc_drive()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    gated, bank = timed("3_kernel", phase_kernel)
+    main_path = timed("4_main_path", phase_main_path)
+    timed("5_tracked_sequence", phase_tracked_sequence)
+    drive, slam = timed("6_slam_drive", phase_slam_drive)
+    overlapped = timed("7_overlapped_mapping", phase_overlapped_mapping)
+    reloc = timed("8_reloc_drive", phase_reloc_drive)
+    known = timed("9_known_answers", phase_known_answers, slam)
+    rumi = timed("10_rumination", phase_rumination)
+    emit(phase_seconds=seconds)
+
+    def by_path(key):
+        paths = {"tracking_step": sum(r[key] for r in main_path.values()),
+                 "slam_drive": drive[key], "overlapped_mapping": overlapped[key]}
+        key = {"launches": "launches_fused_match"}.get(key, key)
+        paths["reloc_drive"] = reloc[key]
+        paths["known_answer_weld"] = known["weld"].get(key, 0)   # gate-off only
+        for mode, r in rumi.items():
+            paths[f"rumination_{mode}"] = r[key]
+        return paths
 
     emit(kernels=[
-        kernel_entry("fused_match", gated[0], drive["launches"],
-                     {"tracking_step": sum(r["launches"] for r in main_path.values()),
-                      "slam_drive": drive["launches"],
-                      "overlapped_mapping": overlapped["launches"],
-                      "reloc_drive": reloc["launches_fused_match"]}, gated),
+        kernel_entry("fused_match", gated[0], drive["launches"], by_path("launches"), gated),
         kernel_entry("match_bank", bank[0], reloc["launches_match_bank"],
-                     {"tracking_step": sum(r["launches_match_bank"] for r in main_path.values()),
-                      "slam_drive": drive["launches_match_bank"],
-                      "overlapped_mapping": overlapped["launches_match_bank"],
-                      "reloc_drive": reloc["launches_match_bank"]}, bank),
+                     by_path("launches_match_bank"), bank),
     ])
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,10 +2,7 @@
 
 The JAX package's ``config.py`` is JAX-free itself, but importing it runs
 ``rumi_slam_tpu/__init__.py``, which imports JAX; so the port carries its own
-copy.  Two things differ: ``Config.intrinsics`` returns a torch tensor, and
-``tiny_config`` turns loop closing off, because the port has no loop closing
-yet (ROADMAP.md queue 1, item 11) and ``SlamSystem`` refuses
-``loop_closing=True``.
+copy.  One thing differs: ``Config.intrinsics`` returns a torch tensor.
 """
 
 from __future__ import annotations
@@ -139,12 +136,12 @@ class Config:
 
 
 def tiny_config(**over) -> Config:
-    """Small capacities for tests; loop closing off (see the module docstring)."""
+    """Small capacities for tests."""
     base = Config(
         camera=CameraConfig(width=320, height=240, fx=260.0, fy=260.0, cx=159.5, cy=119.5),
         orb=ORBConfig(n_features=256, n_levels=3),
         mapping=MapConfig(max_kf=64, max_pt=4096, local_window=5,
-                          overlapped=False, loop_closing=False),
+                          overlapped=False),
         tracking=TrackConfig(min_track_inliers=12, min_localmap_inliers=20,
                              new_map_min_kf=4, new_map_min_duration_s=0.3),
         sampler=SamplerConfig(n_track_last=10, n_new_track_first=5,

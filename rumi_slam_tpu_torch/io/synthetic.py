@@ -1,6 +1,5 @@
 """Synthetic sequence generator: textured 3D world + camera trajectory (port
-of ``rumi_slam_tpu/io/synthetic.py``; the sweep trajectory and stereo pairs
-are not ported yet).
+of ``rumi_slam_tpu/io/synthetic.py``; stereo pairs are not ported yet).
 
 The renderer splats textured squares at projected world-point locations:
 corner-rich imagery that FAST/BRIEF track well, with exact ground truth.
@@ -120,8 +119,32 @@ def smooth_trajectory(n_frames, *, seed=1, speed=0.06, yaw_rate=0.004, sway=0.10
     return poses, times
 
 
+def sweep_trajectory(n_frames, *, seed=1, amp=(1.6, 0.35, 0.5), yaw_amp=0.22):
+    """Handheld sweep: the camera oscillates over one region instead of
+    advancing, so after a lost span it still faces mapped structure: the
+    trajectory of the loss-recovery scenarios.  Returns (poses: [7] float32
+    T_cw tensors on the CPU, times at 30 fps)."""
+    rng = np.random.default_rng(seed)
+    poses = []
+    for i in range(n_frames):
+        t = i / 30.0
+        pos = np.asarray([
+            amp[0] * np.sin(2 * np.pi * 0.06 * t),
+            amp[1] * np.sin(2 * np.pi * 0.11 * t + 1.0),
+            amp[2] * np.sin(2 * np.pi * 0.035 * t),
+        ], np.float32) + rng.normal(scale=0.002, size=3).astype(np.float32)
+        yaw = yaw_amp * np.sin(2 * np.pi * 0.05 * t)
+        pitch = 0.4 * yaw_amp * np.sin(2 * np.pi * 0.08 * t + 0.7)
+        q = lie.so3_exp(torch.from_numpy(np.asarray([pitch, yaw, 0.0], np.float32)))
+        T_wc = lie.se3(q, torch.from_numpy(pos))
+        poses.append(lie.se3_inverse(T_wc))
+    times = np.arange(n_frames, dtype=np.float64) / 30.0
+    return poses, times
+
+
 class SyntheticSequence:
-    """Frame source over a rendered world along ``smooth_trajectory``.
+    """Frame source over a rendered world along ``smooth_trajectory``, or
+    along ``sweep_trajectory`` with ``trajectory="sweep"``.
 
     Frames ``i`` with ``lost_span[0] <= i < lost_span[1]`` render featureless
     (a covered lens) while the trajectory goes on: the loss event that sends
@@ -129,14 +152,16 @@ class SyntheticSequence:
     """
 
     def __init__(self, n_frames=120, *, width=640, height=480, K=None,
-                 n_points=3000, seed=0, lost_span=None, patch=4, device="cpu"):
+                 n_points=3000, seed=0, lost_span=None, patch=4, trajectory="advance",
+                 device="cpu"):
         self.world = make_world(n_points, seed=seed, device=device)
         if K is None:
             K = [width * 0.8, width * 0.8, width / 2 - 0.5, height / 2 - 0.5]
         self.K = torch.as_tensor(K, dtype=torch.float32, device=device)
         self.width, self.height, self.patch = width, height, patch
         self.lost_span = lost_span
-        poses, self.times = smooth_trajectory(n_frames, seed=seed + 1)
+        make = sweep_trajectory if trajectory == "sweep" else smooth_trajectory
+        poses, self.times = make(n_frames, seed=seed + 1)
         self.poses_gt = [p.to(device) for p in poses]
 
     def __len__(self):

@@ -1,6 +1,5 @@
 """MapState: the SLAM map as structure-of-arrays tensors (port of
-``rumi_slam_tpu/mapstate/map_state.py``; ``add_keyframes_bulk`` and
-``relabel_map`` wait for rumination).
+``rumi_slam_tpu/mapstate/map_state.py``).
 
 Every function returns new tensors for the fields it changes and never
 writes into its input: the mapping worker's three-way merge needs the
@@ -200,6 +199,44 @@ def insert_keyframe(ms: MapState, pose, feats, time, point_assoc, *, map_id=None
     return ms, kc
 
 
+def add_keyframes_bulk(ms: MapState, poses, uv, octave, angle, desc, feat_valid,
+                       point_assoc, times, valid, *, map_id, is_cloud=True):
+    """Append a batch of keyframes, compacting the rows without ``valid``
+    (the import of a rumination CloudMap).  Slots go, in order, to the valid
+    rows; rows past ``max_kf`` are dropped.  Only the rows that land write
+    (their slots are distinct), so nothing depends on the order of writes.
+    Returns (ms, kf_ids [Mk] int32, -1 where the row did not land)."""
+    K = ms.max_kf
+    dev = ms.kf_pose.device
+    offs = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = ms.n_kf + offs
+    usable = valid & (slot < K)
+    slot_c = torch.clamp(slot, 0, K - 1)
+    wmask = put_rows(torch.zeros((K,), dtype=torch.bool, device=dev), slot_c,
+                     torch.ones_like(usable), usable)
+
+    def scatter(arr, val):
+        return put_rows(arr, slot_c, val, usable)
+
+    ms = ms._replace(
+        kf_pose=scatter(ms.kf_pose, poses),
+        kf_uv=scatter(ms.kf_uv, uv),
+        kf_octave=scatter(ms.kf_octave, octave),
+        kf_angle=scatter(ms.kf_angle, angle),
+        kf_desc=scatter(ms.kf_desc, desc),
+        # bulk-imported (cloud) KFs are monocular: ur is -1 in the new slots
+        kf_ur=torch.where(wmask[:, None], -1.0, ms.kf_ur),
+        kf_feat_valid=scatter(ms.kf_feat_valid, feat_valid),
+        kf_point=scatter(ms.kf_point, torch.where(feat_valid, point_assoc, -1)),
+        kf_time=scatter(ms.kf_time, times),
+        kf_map_id=torch.where(wmask, _scalar(map_id, torch.int32, dev), ms.kf_map_id),
+        kf_valid=ms.kf_valid | wmask,
+        kf_is_cloud=torch.where(wmask, _scalar(is_cloud, torch.bool, dev), ms.kf_is_cloud),
+        n_kf=torch.clamp_max(ms.n_kf + torch.sum(valid.to(torch.int32)), K).to(torch.int32),
+    )
+    return ms, torch.where(usable, slot_c, -1).to(torch.int32)
+
+
 def add_points(ms: MapState, xyz, desc, valid, ref_kf, *, map_id=None, octave=None,
                angle=None):
     """Append up to M points: slots go, in order, to the rows with
@@ -315,6 +352,15 @@ def local_window(ms: MapState, kf_id, *, window: int):
     w = put_row(w, kf, 1 << 30)
     vals, ids = top_k(w, window)
     return ids.to(torch.int32), vals >= MIN_COVIS_WEIGHT
+
+
+def relabel_map(ms: MapState, old_id, new_id):
+    """Merge submap ``old_id`` into ``new_id``: relabel its KFs and points."""
+    dev = ms.kf_map_id.device
+    new = _scalar(new_id, torch.int32, dev)
+    return ms._replace(
+        kf_map_id=torch.where(ms.kf_map_id == old_id, new, ms.kf_map_id),
+        pt_map_id=torch.where(ms.pt_map_id == old_id, new, ms.pt_map_id))
 
 
 # ---------------------------------------------------------------------------

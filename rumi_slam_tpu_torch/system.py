@@ -6,10 +6,11 @@ initialisation), OK (tracking against the map with its fallbacks, keyframe
 insertion, local mapping inline or on the worker thread), RECENTLY_LOST
 (relocalisation) and LOST (a new submap or a reset of the active one).
 
-What this slice does not carry raises ``NotImplementedError`` naming its
-ROADMAP item: loop closing, RGB-D and stereo input, checkpoints, and camera
-models other than a distortion-free pinhole.  The rumination hooks (the
-image recorder) come with rumination.
+What the port does not carry yet raises ``NotImplementedError`` naming its
+ROADMAP item: RGB-D and stereo input, and camera models other than a
+distortion-free pinhole.  ``image_recorder`` is the rumination hook: it is
+called with (image, time, state) for every frame, before the frame is
+tracked (``rumination.coordinator``).
 
 RANSAC draws: where the JAX package splits its PRNG key (``_next_key``),
 the port calls ``_next_draw``, which consumes one value of the system's CPU
@@ -28,6 +29,7 @@ import torch
 
 from .config import Config
 from .geometry import camera, lie
+from .mapstate import checkpoint
 from .mapstate import map_state as M
 from .ops import matcher
 from .ops.orb import ORBExtractor
@@ -51,7 +53,7 @@ def _not_ported(what: str, item: str):
 
 
 class SlamSystem:
-    def __init__(self, config: Config | None = None, *, device="cuda"):
+    def __init__(self, config: Config | None = None, *, image_recorder=None, device="cuda"):
         """``device``: where the system's state and every frame's work live.
         The default is the card, and a host without one raises; pass
         ``device="cpu"`` to run on the CPU."""
@@ -60,9 +62,6 @@ class SlamSystem:
         if cam.model != "pinhole" or any(c != 0.0 for c in cam.dist_coeffs):
             raise _not_ported(f"camera model {cam.model!r} with distortion "
                               f"{cam.dist_coeffs}", "14: stereo, RGB-D and camera models")
-        if self.cfg.mapping.loop_closing:
-            raise _not_ported("loop closing (cfg.mapping.loop_closing=True)",
-                              "11: loop closing")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -93,6 +92,8 @@ class SlamSystem:
         self._init_time = None
         # trajectory log: (time, pose_cw [7] np, map_id, state)
         self.trajectory: list[tuple[float, np.ndarray, int, str]] = []
+        # hook for the rumination sampler: called with (img, time, state)
+        self.image_recorder = image_recorder
         self.stats = {"n_kf": 0, "n_reloc": 0, "n_new_maps": 0, "n_lost_frames": 0}
         # localization-only mode: track against the frozen map, never insert
         # keyframes
@@ -100,7 +101,7 @@ class SlamSystem:
         self.timer = StageTimer()
         verbose.set_level(self.cfg.verbosity)
         self._log = verbose.print_mess
-        self.mapper = MW.MappingWorker(self.cfg, self.K) if mc.overlapped else None
+        self.mapper = MW.MappingWorker(self.cfg, self.K, self.timer) if mc.overlapped else None
 
     # ------------------------------------------------------------------
     def _next_draw(self):
@@ -112,7 +113,7 @@ class SlamSystem:
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         with self.timer.stage("orb_extract"):
             feats = self.extractor(img)
-        return self._track_common(feats, t)
+        return self._track_common(feats, t, img)
 
     def track_rgbd(self, img, depth, t: float):
         raise _not_ported("track_rgbd", "14: stereo, RGB-D and camera models")
@@ -120,8 +121,10 @@ class SlamSystem:
     def track_stereo(self, img_l, img_r, t: float):
         raise _not_ported("track_stereo", "14: stereo, RGB-D and camera models")
 
-    def _track_common(self, feats, t):
+    def _track_common(self, feats, t, img):
         self._adopt_mapping()
+        if self.image_recorder is not None:
+            self.image_recorder(img, t, self.state)
 
         if self.state == TrackState.NOT_INITIALIZED:
             with self.timer.stage("initialize"):
@@ -303,7 +306,8 @@ class SlamSystem:
             return  # mapping overlaps; the result is adopted at a frame boundary
         # synchronous path (overlapped=False, or worker saturated)
         out = MW.run_mapping_round(self.ms, self.K, self.cfg, kid_i, use_stereo=False,
-                                   draw=self._next_draw(), kf_count=self.stats["n_kf"])
+                                   draw=self._next_draw(), kf_count=self.stats["n_kf"],
+                                   timer=self.timer)
         self._apply_mapping(out)
         self.last_pose = self.ms.kf_pose[kid_i]
         self.last_kf_obs = int(torch.sum(self.ms.kf_point[kid_i] >= 0))
@@ -314,6 +318,14 @@ class SlamSystem:
         ev = out.events
         self.stats["n_new_pts"] = self.stats.get("n_new_pts", 0) + ev["n_new"]
         self.stats["n_fused"] = self.stats.get("n_fused", 0) + ev["n_fused"]
+        for k in ("loop_best_score", "loop_verify_inliers"):
+            if k in ev:
+                self.stats[k] = max(self.stats.get(k, 0), ev[k])
+        if ev["loop"]:
+            self.stats["n_loops"] = self.stats.get("n_loops", 0) + 1
+            # poses moved under us: drop the motion-model extrapolation
+            self.velocity = lie.se3_identity(device=self.device)
+            self._log("[loop] closed during mapping round")
 
     def _adopt_mapping(self):
         """Adopt a finished mapping round at the frame boundary."""
@@ -439,10 +451,22 @@ class SlamSystem:
                                 self.state.name))
 
     def save_map(self, path) -> str:
-        raise _not_ported("save_map (checkpoints)", "12: checkpoint")
+        """Checkpoint the whole MapState (``mapstate.checkpoint``); returns
+        the checkpoint path."""
+        self.sync_mapping()
+        checkpoint.save(self.ms, path)
+        return str(path)
 
     def load_map(self, path):
-        raise _not_ported("load_map (checkpoints)", "12: checkpoint")
+        """Restore a MapState checkpoint onto this system's device; the
+        tracker resumes in RECENTLY_LOST and relocalises against it."""
+        self.sync_mapping()
+        self.ms = checkpoint.load(path, device=self.device)
+        self.n_maps_host = int(self.ms.n_maps)
+        self.active_map_host = int(self.ms.active_map)
+        self.state = TrackState.RECENTLY_LOST
+        self.lost_since = None
+        self.last_kf_id = int(self.ms.n_kf) - 1
 
     def keyframe_trajectory(self, map_id=None):
         """(times, poses_cw) of the keyframes of one submap; default: the

@@ -1,6 +1,7 @@
 """Local mapping: new-point triangulation, duplicate fusion, windowed BA,
-culling (port of ``rumi_slam_tpu/tracking/local_mapping.py``;
-``global_bundle_adjustment`` waits for loop closing).
+culling, and the global BA over one submap (port of
+``rumi_slam_tpu/tracking/local_mapping.py``; the sharded global BA is ROADMAP
+queue 1 item 17).
 
 Each function is MapState -> MapState and writes no tensor of its input.
 Points keep their global slot inside the BA problem; local BA compacts only
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ..geometry import camera, triangulation
+from ..geometry import camera, lie, triangulation
 from ..mapstate import map_state as M
 from ..ops import matcher
 from ..ops.select import top_k
@@ -267,3 +268,83 @@ def cull_points(ms: M.MapState, *, min_found_ratio=0.25, min_obs=2, grace_obs=3)
     bad_ref = bad[ms.kf_point.clamp_min(0).long()] & (ms.kf_point >= 0)
     return ms._replace(pt_valid=ms.pt_valid & ~bad,
                        kf_point=torch.where(bad_ref, -1, ms.kf_point))
+
+
+def _round_up(n, step=32):
+    return max(step, ((n + step - 1) // step) * step)
+
+
+def gba_problem(ms: M.MapState, map_id):
+    """The compacted global-BA problem of one submap: its live keyframes and
+    points renumbered to a prefix and padded to 32-buckets.
+
+    Returns None when the submap has fewer than 3 keyframes or 8 points,
+    else a dict with the row indices (``kf_rows``, ``pt_rows``: LongTensors
+    on the map's device), the padded sizes ``C``, ``P``, the observation
+    count ``n_obs`` (0-d tensor) and the arguments of
+    ``ba.bundle_adjust`` (``poses, points, cam_idx, pt_idx, uv, conf,
+    cam_free, pt_free``).  One host read (the two membership masks) sizes
+    the problem; everything else stays on the device.
+    """
+    dev = ms.kf_pose.device
+    kf_sel = (ms.kf_map_id == map_id) & ms.kf_valid
+    pt_sel = (ms.pt_map_id == map_id) & ms.pt_valid
+    kf_rows = torch.nonzero(kf_sel)[:, 0]
+    pt_rows = torch.nonzero(pt_sel)[:, 0]
+    nk, npt = int(kf_rows.shape[0]), int(pt_rows.shape[0])
+    if nk < 3 or npt < 8:
+        return None
+    C, P, F = _round_up(nk), _round_up(npt), ms.max_feat
+
+    pt_local = torch.full((ms.max_pt,), -1, dtype=torch.int64, device=dev)
+    pt_local[pt_rows] = torch.arange(npt, device=dev)
+    kp = ms.kf_point[kf_rows]                                        # [nk, F]
+    obs_pt = torch.where(kp >= 0, pt_local[kp.clamp_min(0).long()], -1)
+    conf = ((obs_pt >= 0) & ms.kf_feat_valid[kf_rows]).to(torch.float32) \
+        * octave_inv_sigma2(ms.kf_octave[kf_rows])
+    # cloud-KF observations (keypoints detected on blur-homogenised bundle
+    # frames) are noisier than live ones and, after a merge, as many
+    conf = conf * torch.where(ms.kf_is_cloud[kf_rows], 0.3, 1.0)[:, None]
+
+    pad = (C - nk) * F
+    poses = torch.cat([ms.kf_pose[kf_rows],
+                       lie.se3_identity(device=dev).expand(C - nk, 7)])
+    points = torch.cat([ms.pt_xyz[pt_rows], torch.zeros((P - npt, 3), device=dev)])
+    zl = torch.zeros((pad,), dtype=torch.int64, device=dev)
+    return {
+        "kf_rows": kf_rows, "pt_rows": pt_rows, "C": C, "P": P,
+        "n_obs": torch.sum(conf > 0),
+        "args": (
+            poses, points,
+            torch.cat([torch.arange(nk, device=dev).repeat_interleave(F), zl]),
+            torch.cat([obs_pt.clamp_min(0).reshape(-1), zl]),
+            torch.cat([ms.kf_uv[kf_rows].reshape(-1, 2), torch.zeros((pad, 2), device=dev)]),
+            torch.cat([conf.reshape(-1), torch.zeros((pad,), device=dev)]),
+            (torch.arange(C, device=dev) >= 2) & (torch.arange(C, device=dev) < nk),
+            torch.arange(P, device=dev) < npt,
+        ),
+    }
+
+
+def global_bundle_adjustment(ms: M.MapState, K, map_id, *, n_iters: int = 12, mesh=None):
+    """Full BA over one submap: the problem is compacted to the submap's live
+    keyframes and points (``gba_problem``) and handed to the dense
+    Schur-complement LM engine, so memory follows the live map and not the
+    capacity.  Gauge: the two oldest KFs stay fixed.  It runs rarely: after
+    a loop closure and after a rumination merge.
+
+    ``mesh`` other than None asked the JAX package for its sharded PCG
+    engine, which is not ported.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded global BA (mesh=...) is not ported to rumi_slam_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 17: sharded BA)")
+    prob = gba_problem(ms, map_id)
+    if prob is None:
+        return ms
+    res = ba.bundle_adjust(K, *prob["args"], n_iters=n_iters)
+    kf_rows, pt_rows = prob["kf_rows"], prob["pt_rows"]
+    return ms._replace(
+        kf_pose=ms.kf_pose.index_put((kf_rows,), res.poses[: kf_rows.shape[0]]),
+        pt_xyz=ms.pt_xyz.index_put((pt_rows,), res.points[: pt_rows.shape[0]]))

@@ -1,23 +1,26 @@
 """Local mapping as a snapshot-in / snapshot-out round, run inline or on a
-worker thread (port of ``rumi_slam_tpu/tracking/mapping_worker.py``; the
-loop-closing branch is ROADMAP queue 1 item 11 and raises).
+worker thread (port of ``rumi_slam_tpu/tracking/mapping_worker.py``).
 
 * The tracker inserts a keyframe and submits that MapState snapshot; one
   task is in flight at a time (keyframes are only created while the worker
   is idle).
 * The worker runs the round (triangulation, duplicate fusion, windowed BA,
-  culling) on the snapshot and produces a new MapState.  No function of the
-  round writes into a tensor of its input, so the snapshot stays as it was.
+  culling, cadenced loop closing) on the snapshot and produces a new
+  MapState.  No function of the round writes into a tensor of its input, so
+  the snapshot stays as it was.
 * The tracker adopts the result at a frame boundary by a three-way merge.
 
-On the card the worker thread runs on the default stream, as the tracker
-does: the device runs the two in order and only the host work overlaps.
+On the card the worker thread runs its round on the stream that was current
+where the task was submitted (the default stream, unless the caller runs the
+system under a stream of its own), so the snapshot it reads is complete:
+the device runs tracker and worker in order and only the host work overlaps.
 The worker records a CUDA event after its round and waits on it before it
 publishes the result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -26,16 +29,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..mapstate import map_state as M
-from . import local_mapping
+from . import local_mapping, loop_closing
 
 
 class MappingTask(NamedTuple):
     ms: M.MapState          # snapshot including the freshly inserted KF
     kf_id: int
     use_stereo: bool
-    draw: object            # RANSAC draw of the loop-closing round (unused while
-                            # loop closing is not ported; drawn all the same)
-    kf_count: int           # stats["n_kf"] at submit (culling cadence)
+    draw: object            # RANSAC draw of the loop-closing verification
+    kf_count: int           # stats["n_kf"] at submit (culling/loop cadence)
+    stream: object = None   # the submitter's CUDA stream (None on the CPU)
 
 
 class MappingOutcome(NamedTuple):
@@ -45,12 +48,10 @@ class MappingOutcome(NamedTuple):
 
 
 def run_mapping_round(ms: M.MapState, K, cfg, kf_id: int, *, use_stereo: bool, draw,
-                      kf_count: int) -> MappingOutcome:
-    """One local-mapping round as a pure MapState -> MapState function."""
-    if cfg.mapping.loop_closing:
-        raise NotImplementedError(
-            "loop closing is not ported to rumi_slam_tpu_torch yet (ROADMAP.md queue 1, "
-            "item 11: loop closing); set cfg.mapping.loop_closing=False")
+                      kf_count: int, timer=None) -> MappingOutcome:
+    """One local-mapping round as a pure MapState -> MapState function.
+    ``timer``: an optional ``StageTimer``; the loop-closing block is its
+    ``loop_closing`` stage."""
     snap = ms
     events = {"n_new": 0, "n_fused": 0, "loop": False}
     cam = cfg.camera
@@ -81,7 +82,37 @@ def run_mapping_round(ms: M.MapState, K, cfg, kf_id: int, *, use_stereo: bool, d
     ms = M.refresh_point_descriptors(ms, kf_id)
     if cfg.mapping.kf_culling and kf_count % 4 == 0:
         ms = local_mapping.cull_keyframes(ms, kf_id)
+    mc = cfg.mapping
+    if mc.loop_closing and kf_count % mc.loop_check_interval == 0:
+        with timer.stage("loop_closing") if timer is not None else contextlib.nullcontext():
+            ms = _loop_closing_round(ms, K, mc, kf_id, draw, events)
     return MappingOutcome(snap=snap, mapped=ms, events=events)
+
+
+def _loop_closing_round(ms, K, mc, kf_id, draw, events):
+    """Detect, verify and (on enough inliers) close a loop at ``kf_id``;
+    writes ``loop``, ``loop_best_score`` and ``loop_verify_inliers`` into
+    ``events``."""
+    cand = loop_closing.detect_loop_candidates(ms, kf_id)
+    cand_ids, cand_scores = cand.kf_id.tolist(), cand.score.tolist()
+    events["loop_best_score"] = int(cand_scores[0])
+    for cand_kf, score in zip(cand_ids, cand_scores):
+        if int(score) < mc.loop_min_score:
+            break
+        S, n_inl, _ = loop_closing.verify_loop(draw, K, ms, kf_id, cand_kf)
+        n_inl = int(n_inl)
+        # how close verification gets when loops do not close
+        events["loop_verify_inliers"] = max(events.get("loop_verify_inliers", 0), n_inl)
+        if n_inl >= mc.loop_min_inliers:
+            ms = loop_closing.close_loop(ms, K, kf_id, cand_kf, S)
+            events["loop"] = True
+            if mc.loop_gba_iters > 0:
+                # the round is the background thread: run the global BA
+                # inline on the graph-corrected map
+                ms = local_mapping.global_bundle_adjustment(
+                    ms, K, int(ms.kf_map_id[kf_id]), n_iters=mc.loop_gba_iters)
+            break
+    return ms
 
 
 def merge_mapping_result(cur: M.MapState, snap: M.MapState, mapped: M.MapState) -> M.MapState:
@@ -112,9 +143,10 @@ def merge_mapping_result(cur: M.MapState, snap: M.MapState, mapped: M.MapState) 
 class MappingWorker:
     """One background thread, one in-flight task, one pending result."""
 
-    def __init__(self, cfg, K):
+    def __init__(self, cfg, K, timer=None):
         self.cfg = cfg
         self.K = K
+        self.timer = timer
         self._tasks: queue.Queue[Optional[MappingTask]] = queue.Queue(1)
         self._result: Optional[MappingOutcome] = None
         self._error: Optional[BaseException] = None
@@ -130,13 +162,16 @@ class MappingWorker:
             if task is None:
                 return
             try:
-                out = run_mapping_round(task.ms, self.K, self.cfg, task.kf_id,
-                                        use_stereo=task.use_stereo, draw=task.draw,
-                                        kf_count=task.kf_count)
-                if out.mapped.kf_pose.is_cuda:
-                    done = torch.cuda.Event()
-                    done.record()
-                    done.synchronize()
+                # a new thread starts on the default stream: take the submitter's
+                with (torch.cuda.stream(task.stream) if task.stream is not None
+                      else contextlib.nullcontext()):
+                    out = run_mapping_round(task.ms, self.K, self.cfg, task.kf_id,
+                                            use_stereo=task.use_stereo, draw=task.draw,
+                                            kf_count=task.kf_count, timer=self.timer)
+                    if task.stream is not None:
+                        done = torch.cuda.Event()
+                        done.record()
+                        done.synchronize()
                 with self._lock:
                     self._result = out
                     self._busy = False
@@ -156,7 +191,10 @@ class MappingWorker:
             if self._busy or self._result is not None:
                 return False
             self._busy = True
-        self._tasks.put(MappingTask(ms, int(kf_id), bool(use_stereo), draw, int(kf_count)))
+        dev = ms.kf_pose.device
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        self._tasks.put(MappingTask(ms, int(kf_id), bool(use_stereo), draw, int(kf_count),
+                                    stream))
         return True
 
     def _raise_pending(self):

@@ -31,7 +31,7 @@ from rumi_slam_tpu_torch.mapstate import map_state as tM
 from rumi_slam_tpu_torch.tracking import local_mapping as tLM
 from rumi_slam_tpu_torch.tracking import mapping_worker as tMW
 
-from torch_system_drive import mapping_inputs
+from torch_system_drive import jax_draw, mapping_inputs
 
 torch.set_num_threads(1)
 
@@ -188,8 +188,8 @@ def test_keyframe_culling_and_eviction(snapshot, fn, kw):
 # ------------------------------------------------------------- the mapping round
 
 def jax_cfg():
-    c = jax_tiny_config()
-    return dataclasses.replace(c, mapping=dataclasses.replace(c.mapping, loop_closing=False))
+    """``tiny_config()`` as it is: loop closing on, as in the port's."""
+    return jax_tiny_config()
 
 
 @pytest.mark.parametrize("which", [0, -1])
@@ -197,7 +197,7 @@ def test_run_mapping_round_matches_jax_and_keeps_its_snapshot(rounds, K, which):
     t_ms, kf_id, kf_count = rounds[0][which]
     copy = clone(t_ms)
     out_t = tMW.run_mapping_round(t_ms, K[0], tiny_config(), kf_id, use_stereo=False,
-                                  draw=None, kf_count=kf_count)
+                                  draw=jax_draw(jax.random.PRNGKey(0)), kf_count=kf_count)
     assert_untouched(t_ms, copy)            # the snapshot is bit-unchanged
     assert out_t.snap is t_ms
     out_j = jMW.run_mapping_round(to_jax(t_ms), K[1], jax_cfg(), kf_id, use_stereo=False,
@@ -212,12 +212,24 @@ def test_run_mapping_round_matches_jax_and_keeps_its_snapshot(rounds, K, which):
 
 
 def test_run_mapping_round_refuses_loop_closing(snapshot, K):
-    t_ms, _, kf_id, kf_count = snapshot
+    """The round refused ``loop_closing=True`` while loop closing was not
+    ported; now it runs the detection at the cadence, in both packages
+    alike, and off the cadence or with loop closing off it does not."""
+    t_ms, j_ms, kf_id, _ = snapshot
     cfg = tiny_config()
-    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, loop_closing=True))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tMW.run_mapping_round(t_ms, K[0], cfg, kf_id, use_stereo=False, draw=None,
-                              kf_count=kf_count)
+    assert cfg.mapping.loop_closing
+    at = cfg.mapping.loop_check_interval * 3
+    key = jax.random.PRNGKey(0)
+    out_t = tMW.run_mapping_round(t_ms, K[0], cfg, kf_id, use_stereo=False,
+                                  draw=jax_draw(key), kf_count=at)
+    out_j = jMW.run_mapping_round(j_ms, K[1], jax_cfg(), kf_id, use_stereo=False, key=key,
+                                  kf_count=at)
+    assert "loop_best_score" in out_t.events and out_t.events == out_j.events
+    off = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, loop_closing=False))
+    for c, count in ((cfg, at + 1), (off, at)):
+        out = tMW.run_mapping_round(t_ms, K[0], c, kf_id, use_stereo=False, draw=None,
+                                    kf_count=count)
+        assert "loop_best_score" not in out.events
 
 
 def test_merge_mapping_result_three_way(snapshot):
