@@ -8,8 +8,8 @@ Drives the port's main paths on the card at the full ``Config()`` size
 per-frame monocular tracking step (``rumi_slam_tpu_torch.step``) and the
 monocular SLAM facade (``rumi_slam_tpu_torch.system.SlamSystem``) with loop
 closing, checkpoints and the rumination pipeline
-(``rumi_slam_tpu_torch.rumination``), in ten phases, each of which raises on
-failure:
+(``rumi_slam_tpu_torch.rumination``), and the facade's RGB-D and stereo
+input, in eleven phases, each of which raises on failure:
 
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: ``csrc/fused_match.cu`` with nvcc into ``build/``;
@@ -90,7 +90,21 @@ failure:
     the OK share and the keyframe ATE are held to the JAX package's run of
     the same drive; the gated kernel must launch at least once per frame
     tracked in OK by the live and the offline system, the gate-off kernel
-    once per ``relocalize_map`` call.
+    once per ``relocalize_map`` call;
+11. depth modes at full width (``DEPTH_RUNS``; phase 6's configuration with an
+    8 cm baseline, ``tests/torch_system_drive.py::drive``): (a)
+    ``track_rgbd`` and (b) ``track_stereo`` over phase 6's 60 frames, (c)
+    ``track_rgbd`` over 70 frames with frames 40-45 featureless and a 0.1 s
+    relocalisation window, where the system gives the map up, opens submap 1
+    and initialises it from depth on the first textured frame.  Each run: the
+    states, keyframes and maps, the ATE with and without scale, the time per
+    stage and the launches; held to the JAX package's OK share and ATE
+    without scale, to metric scale, to a gated launch per frame tracked in
+    OK, and (c) to JAX's new-submap frame give or take one; (b) also times
+    ``match_stereo`` at 1024 x 1024.  Then the camera models on the card:
+    ``_extract`` under TUM1's radtan camera and a KB8 camera against the
+    CPU's on the rows whose raw keypoint is the same on both, and
+    ``undistort_points`` / ``kb8.unproject`` on 1024 seeded points.
 
 ``python3 chip_smoke.py --sweep-blocks-per-sm`` runs phases 1-2 and then
 times both instantiations with the grid planned for 2 to 64 blocks an SM
@@ -1140,12 +1154,7 @@ def rumination_drive():
     """``tests/torch_rumination_drive.py``: the scenario's configuration,
     sequence and clear-view backend, shared with the CPU drives of either
     package (the module itself imports neither)."""
-    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import torch_rumination_drive
-
-    return torch_rumination_drive
+    return tests_module("torch_rumination_drive")
 
 
 def rumination_config(overlapped=False):
@@ -1369,6 +1378,167 @@ def phase_rumination():
     return runs
 
 
+# Phase 11: the depth modes at full width, loop closing off, synchronous
+# mapping, an 8 cm baseline (``tests/torch_system_drive.py::depth_camera``).
+# What the JAX package does on each run (CPU, `JAX_PLATFORMS=cpu PYTHONPATH=.
+# python tests/torch_system_drive.py --mode rgbd`, `... --mode stereo`, `...
+# --mode rgbd --frames 70 --lost-span 40 46 --reloc-window 0.1`): (a) RGB-D,
+# 60 of 60 frames OK, 20 keyframes, frame-trajectory ATE 0.011534 m without
+# scale (0.010817 m with); (b) stereo, 60 of 60 OK, 20 keyframes, 0.012798 m
+# (0.008839 m); (c) RGB-D over 70 frames with frames 40-45 featureless and a
+# 0.1 s relocalisation window: RECENTLY_LOST on 40-42, LOST and submap 1 on
+# 43, initialised from depth on 46 (the first textured frame), 64 of 70 OK,
+# 22 keyframes (14 + 8), 0.008409 m (0.008397 m).  Each run is held to an OK
+# share of at least JAX's less 0.05, an ATE without scale of at most 1.5 x
+# JAX's + 0.01 m, a metric scale (the ATE without scale below the larger of
+# that bound and twice the ATE with scale), and run (c) to a new submap on
+# JAX's frame or next to it.
+DEPTH_RUNS = {
+    "rgbd": dict(mode="rgbd", n_frames=60, jax_ok_share=60 / 60, jax_ate_m=0.011534),
+    "stereo": dict(mode="stereo", n_frames=60, jax_ok_share=60 / 60, jax_ate_m=0.012798),
+    "rgbd_loss": dict(mode="rgbd", n_frames=70, lost_span=(40, 46), reloc_window_s=0.1,
+                      jax_ok_share=64 / 70, jax_ate_m=0.008409, jax_new_map_frame=43),
+}
+# The camera models on the card: TUM1's radtan coefficients with its
+# intrinsics, and a KB8 camera, each with the rectification on the card held
+# to the CPU's on the same keypoints.
+TUM1_RADTAN = (0.262383, -0.953104, -0.005358, 0.002628, 1.163314)
+KB8_COEFFS = (0.05, -0.01, 0.003, -0.001)
+RECTIFY_ATOL_PX = 1e-3
+
+
+def tests_module(name):
+    """A module of ``tests/`` (the drives' helpers, which import neither
+    package at their top)."""
+    import importlib
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    return importlib.import_module(name)
+
+
+def depth_run(name):
+    """One run of phase 11 on the card: drive, time, check."""
+    import torch
+
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+
+    spec = dict(DEPTH_RUNS[name])
+    jax_ok, jax_ate = spec.pop("jax_ok_share"), spec.pop("jax_ate_m")
+    jax_new_map = spec.pop("jax_new_map_frame", None)
+    drive = tests_module("torch_system_drive").drive
+    # the main path: the launch counters start at 0 here
+    fm.fused_match.launches = 0
+    fm.match_bank.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, slam, seq = drive(True, device="cuda", **spec)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = {"fused_match": fm.fused_match.launches, "match_bank": fm.match_bank.launches}
+    states = d["states"]
+    tracked = tracked_in_ok(slam)
+    bound = 1.5 * jax_ate + 0.01
+    r = dict(run=name, mode=spec["mode"], frames=len(states), lost_span=spec.get("lost_span"),
+             states="".join(_LETTER[s] for s in states), ok_share=d["ok_share"],
+             n_kf=d["n_kf"], n_maps=slam.n_maps_host, new_map_frames=d["new_map_frames"],
+             ate_unscaled_m=d["ate_unscaled"], ate_scaled_m=d["ate"], wall_s=d["wall_s"],
+             ms_per_frame=1e3 * d["wall_s"] / len(states), total_s=total,
+             stage_ms=slam.timer.stats(),
+             launches_fused_match=launches["fused_match"],
+             launches_match_bank=launches["match_bank"], tracked_in_ok=tracked,
+             stats=slam.stats,
+             bounds=dict(ok_share_min=jax_ok - 0.05, ate_unscaled_max_m=bound,
+                         jax_ate_unscaled_m=jax_ate, jax_new_map_frame=jax_new_map))
+    if spec["mode"] == "stereo":
+        from rumi_slam_tpu_torch.ops import stereo
+
+        img_l, img_r, _ = seq.frame_stereo(0, slam.cfg.camera.baseline)
+        fl, fr = slam._extract(img_l), slam._extract(img_r)
+        r["match_stereo_ms"] = cuda_time_ms(
+            lambda: stereo.match_stereo(fl, fr, slam.cfg.camera.bf))
+        r["match_stereo_shape"] = [fl.uv.shape[0], fr.uv.shape[0]]
+    emit(phase="depth_modes", **r)
+    if r["ok_share"] < r["bounds"]["ok_share_min"]:
+        raise RuntimeError(f"{name}: OK share {r['ok_share']} below {jax_ok - 0.05}")
+    if not d["ate_unscaled"] <= bound:
+        raise RuntimeError(f"{name}: ATE without scale {d['ate_unscaled']} m above {bound} m")
+    if not d["ate_unscaled"] < max(2.0 * d["ate"], bound):
+        raise RuntimeError(f"{name}: not at metric scale: {d['ate_unscaled']} m without scale, "
+                           f"{d['ate']} m with")
+    if launches["fused_match"] < tracked:
+        raise RuntimeError(f"{name}: {launches['fused_match']} gated launches for {tracked} "
+                           "frames tracked in OK")
+    if jax_new_map is not None and (slam.stats["n_new_maps"] != 1 or len(d["new_map_frames"]) != 1
+                                    or abs(d["new_map_frames"][0] - jax_new_map) > 1):
+        raise RuntimeError(f"{name}: new submap on {d['new_map_frames']}, JAX on {jax_new_map}")
+    return r
+
+
+def camera_models_on_card(device="cuda"):
+    """``_extract`` on one 640x480 frame on ``device`` and on the CPU under
+    TUM1's radtan camera and a KB8 camera: rows whose raw keypoint is the
+    same on both (valid in both) must be rectified to within RECTIFY_ATOL_PX;
+    ``undistort_points`` and ``kb8.unproject`` on 1024 seeded points, card
+    against CPU."""
+    import dataclasses
+
+    import torch
+
+    from rumi_slam_tpu_torch.config import Config
+    from rumi_slam_tpu_torch.geometry import camera_kb8, distortion
+    from rumi_slam_tpu_torch.io import settings
+    from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+    from rumi_slam_tpu_torch.system import SlamSystem
+
+    tum1 = settings.preset("tum1")
+    configs = {
+        "radtan": dataclasses.replace(tum1, camera=dataclasses.replace(
+            tum1.camera, **dict(zip(("k1", "k2", "p1", "p2", "k3"), TUM1_RADTAN)))),
+        "kb8": dataclasses.replace(Config(), camera=dataclasses.replace(
+            Config().camera, model="kb8", kb_coeffs=KB8_COEFFS)),
+    }
+    out = {}
+    for name, cfg in configs.items():
+        c = cfg.camera
+        img = SyntheticSequence(n_frames=1, width=c.width, height=c.height,
+                                K=cfg.intrinsics(), seed=4).frame(0)[0]
+        systems = {"card": SlamSystem(cfg, device=device), "cpu": SlamSystem(cfg, device="cpu")}
+        raw = {k: s.extractor(img.to(s.device)) for k, s in systems.items()}
+        rect = {k: s._extract(img.to(s.device)) for k, s in systems.items()}
+        common = ((raw["card"].uv.cpu() == raw["cpu"].uv).all(1) & raw["card"].valid.cpu()
+                  & raw["cpu"].valid)
+        gap = float((rect["card"].uv.cpu() - rect["cpu"].uv)[common].abs().max())
+        moved = float((rect["cpu"].uv - raw["cpu"].uv)[common].norm(dim=1).max())
+        out[name] = dict(valid=[int(raw["card"].valid.sum()), int(raw["cpu"].valid.sum())],
+                         common_rows=int(common.sum()), max_gap_px=gap, max_moved_px=moved)
+        if not gap <= RECTIFY_ATOL_PX or common.sum() < 0.9 * raw["cpu"].valid.sum():
+            raise RuntimeError(f"_extract under {name} on the card against the CPU: {out[name]}")
+    rng = np.random.default_rng(0)
+    uv = torch.from_numpy(rng.uniform([0, 0], [640, 480], (1024, 2)).astype(np.float32))
+    K = configs["radtan"].intrinsics()
+    dist = torch.tensor(TUM1_RADTAN, dtype=torch.float32)
+    P8 = torch.cat([Config().intrinsics(), torch.tensor(KB8_COEFFS)])
+    fns = {"undistort_points": lambda d: distortion.undistort_points(K.to(d), dist.to(d), uv.to(d)),
+           "kb8_unproject": lambda d: camera_kb8.unproject(P8.to(d), uv.to(d))}
+    for name, fn in fns.items():
+        gap = float((fn(device).cpu() - fn("cpu")).abs().max())
+        out[name] = dict(points=1024, max_gap=gap)
+        if not gap <= RECTIFY_ATOL_PX:
+            raise RuntimeError(f"{name} on the card against the CPU: largest gap {gap}")
+    emit(phase="camera_models", **out)
+    return out
+
+
+def phase_depth_modes():
+    """Phase 11: RGB-D, stereo and RGB-D with a loss at full width, then the
+    camera models on the card."""
+    runs = {name: depth_run(name) for name in DEPTH_RUNS}
+    camera_models_on_card()
+    return runs
+
+
 def kernel_entry(name, shape_result, launches, launches_by_path, all_results):
     """One entry of the ``kernels`` line: the times and the bound at the
     main path's shape, the largest error over every shape compared."""
@@ -1446,6 +1616,7 @@ def main():
     reloc = timed("8_reloc_drive", phase_reloc_drive)
     known = timed("9_known_answers", phase_known_answers, slam)
     rumi = timed("10_rumination", phase_rumination)
+    depth = timed("11_depth_modes", phase_depth_modes)
     emit(phase_seconds=seconds)
 
     def by_path(key):
@@ -1456,6 +1627,8 @@ def main():
         paths["known_answer_weld"] = known["weld"].get(key, 0)   # gate-off only
         for mode, r in rumi.items():
             paths[f"rumination_{mode}"] = r[key]
+        for name, r in depth.items():
+            paths[f"depth_{name}"] = r[key]
         return paths
 
     emit(kernels=[

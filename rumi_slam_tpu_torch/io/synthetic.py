@@ -1,5 +1,6 @@
-"""Synthetic sequence generator: textured 3D world + camera trajectory (port
-of ``rumi_slam_tpu/io/synthetic.py``; stereo pairs are not ported yet).
+"""Synthetic sequence generator: textured 3D world + camera trajectory, with
+monocular, RGB-D and rectified stereo frames (port of
+``rumi_slam_tpu/io/synthetic.py``).
 
 The renderer splats textured squares at projected world-point locations:
 corner-rich imagery that FAST/BRIEF track well, with exact ground truth.
@@ -184,3 +185,16 @@ class SyntheticSequence:
         depth = render_depth(self.world, self.K, self.poses_gt[i],
                              width=self.width, height=self.height, patch=self.patch)
         return img, depth, t
+
+    def frame_stereo(self, i, baseline: float):
+        """(gray_left, gray_right, t): a rectified stereo pair, the right
+        camera offset by ``baseline`` metres along +x of the left camera
+        frame.  Only the left image follows ``lost_span``."""
+        img_l, t = self.frame(i)
+        T_rl = lie.se3(lie.quat_identity(device=self.K.device),
+                       torch.tensor([-baseline, 0.0, 0.0], dtype=torch.float32,
+                                    device=self.K.device))
+        T_rw = lie.se3_compose(T_rl, self.poses_gt[i])
+        img_r = render_frame(self.world, self.K, T_rw,
+                             width=self.width, height=self.height, patch=self.patch)
+        return img_l, img_r, t

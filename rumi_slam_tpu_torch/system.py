@@ -1,14 +1,15 @@
-"""SlamSystem: the host-side facade and tracking state machine (port of the
-monocular part of ``rumi_slam_tpu/system.py``).
+"""SlamSystem: the host-side facade and tracking state machine (port of
+``rumi_slam_tpu/system.py``).
 
-Per frame: ORB extraction, then by state NOT_INITIALIZED (two-view
-initialisation), OK (tracking against the map with its fallbacks, keyframe
-insertion, local mapping inline or on the worker thread), RECENTLY_LOST
-(relocalisation) and LOST (a new submap or a reset of the active one).
-
-What the port does not carry yet raises ``NotImplementedError`` naming its
-ROADMAP item: RGB-D and stereo input, and camera models other than a
-distortion-free pinhole.  ``image_recorder`` is the rumination hook: it is
+Three inputs: ``track_monocular`` (a grayscale frame), ``track_rgbd`` (a
+frame and its registered depth map) and ``track_stereo`` (a rectified pair).
+Per frame: ORB extraction, with the keypoints rectified to the ideal pinhole
+for a radtan- or Kannala-Brandt-calibrated camera, then by state
+NOT_INITIALIZED (two-view initialisation, or one frame's depth in the depth
+modes), OK (tracking against the map with its fallbacks, keyframe insertion,
+points spawned from depth in the depth modes, local mapping inline or on the
+worker thread), RECENTLY_LOST (relocalisation) and LOST (a new submap or a
+reset of the active one).  ``image_recorder`` is the rumination hook: it is
 called with (image, time, state) for every frame, before the frame is
 tracked (``rumination.coordinator``).
 
@@ -28,10 +29,10 @@ import numpy as np
 import torch
 
 from .config import Config
-from .geometry import camera, lie
+from .geometry import camera, camera_kb8, distortion, lie
 from .mapstate import checkpoint
 from .mapstate import map_state as M
-from .ops import matcher
+from .ops import matcher, stereo
 from .ops.orb import ORBExtractor
 from .optim import ba, ransac, two_view
 from .tracking import local_mapping, tracker
@@ -47,27 +48,25 @@ class TrackState(enum.Enum):
     LOST = 3
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to rumi_slam_tpu_torch yet (ROADMAP.md queue 1, item {item})")
-
-
 class SlamSystem:
     def __init__(self, config: Config | None = None, *, image_recorder=None, device="cuda"):
         """``device``: where the system's state and every frame's work live.
         The default is the card, and a host without one raises; pass
         ``device="cpu"`` to run on the CPU."""
         self.cfg = config or Config()
-        cam = self.cfg.camera
-        if cam.model != "pinhole" or any(c != 0.0 for c in cam.dist_coeffs):
-            raise _not_ported(f"camera model {cam.model!r} with distortion "
-                              f"{cam.dist_coeffs}", "14: stereo, RGB-D and camera models")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"SlamSystem: device {device!r} asked for and no CUDA device is present "
                 "(pass device=\"cpu\" to run on the CPU)")
         self.K = self.cfg.intrinsics(self.device)
+        cam = self.cfg.camera
+        self._dist = (torch.tensor(cam.dist_coeffs, dtype=torch.float32, device=self.device)
+                      if distortion.has_distortion(cam.dist_coeffs) else None)
+        # [8] fisheye parameters (K, then the polynomial) of a KB8 camera
+        self._kb8 = (torch.cat([self.K, torch.tensor(cam.kb_coeffs, dtype=torch.float32,
+                                                     device=self.device)])
+                     if cam.model == "kb8" else None)
         o = self.cfg.orb
         self.extractor = ORBExtractor(
             n_features=o.n_features, n_levels=o.n_levels, scale_factor=o.scale_factor,
@@ -98,6 +97,8 @@ class SlamSystem:
         # localization-only mode: track against the frozen map, never insert
         # keyframes
         self.localization_only = False
+        self._cur_ur = None  # the frame's virtual right u (depth modes)
+        self._cur_z = None   # the frame's metric depth (None in monocular mode)
         self.timer = StageTimer()
         verbose.set_level(self.cfg.verbosity)
         self._log = verbose.print_mess
@@ -108,27 +109,68 @@ class SlamSystem:
         seed = int(torch.randint(0, 2**62, (), generator=self._gen))
         return ransac.sampler(torch.Generator().manual_seed(seed))
 
+    def _extract(self, img):
+        """ORB features of a frame, the keypoints rectified once to the ideal
+        pinhole: through the fisheye model for a KB8 camera (which takes
+        precedence), else undistorted when radtan coefficients are set."""
+        feats = self.extractor(img)
+        if self._kb8 is not None:
+            feats = feats._replace(uv=camera.project(self.K, camera_kb8.unproject(self._kb8,
+                                                                                 feats.uv)))
+        elif self._dist is not None:
+            feats = feats._replace(uv=distortion.undistort_points(self.K, self._dist, feats.uv))
+        return feats
+
+    def _image(self, img):
+        return torch.as_tensor(img, dtype=torch.float32, device=self.device)
+
     def track_monocular(self, img, t: float):
         """Process one grayscale frame (float32 [H, W]); returns the state."""
-        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        img = self._image(img)
         with self.timer.stage("orb_extract"):
-            feats = self.extractor(img)
+            feats = self._extract(img)
         return self._track_common(feats, t, img)
 
     def track_rgbd(self, img, depth, t: float):
-        raise _not_ported("track_rgbd", "14: stereo, RGB-D and camera models")
+        """Process one grayscale frame and its registered depth map
+        ([H, W]; raw / ``camera.depth_factor`` = metres): the depth gives
+        one-frame initialisation and new points at keyframes.  Needs
+        ``camera.baseline > 0`` for the virtual right coordinate."""
+        cam = self.cfg.camera
+        if cam.baseline <= 0:
+            raise ValueError("RGB-D mode needs camera.baseline > 0 (for bf)")
+        img = self._image(img)
+        with self.timer.stage("orb_extract"):
+            feats = self._extract(img)
+        ur, z = stereo.depth_from_rgbd(self._image(depth), feats.uv, cam.bf,
+                                       depth_factor=cam.depth_factor, max_z=cam.th_depth)
+        return self._track_common(feats, t, img, ur=ur, z=z)
 
     def track_stereo(self, img_l, img_r, t: float):
-        raise _not_ported("track_stereo", "14: stereo, RGB-D and camera models")
+        """Process a rectified stereo pair: the depth of each left feature
+        comes from ``stereo.match_stereo`` against the right image's."""
+        cam = self.cfg.camera
+        if cam.baseline <= 0:
+            raise ValueError("stereo mode needs camera.baseline > 0")
+        img_l = self._image(img_l)
+        with self.timer.stage("orb_extract"):
+            feats = self._extract(img_l)
+            feats_r = self._extract(self._image(img_r))
+        ur, z = stereo.match_stereo(feats, feats_r, cam.bf)
+        return self._track_common(feats, t, img_l, ur=ur, z=z)
 
-    def _track_common(self, feats, t, img):
+    def _track_common(self, feats, t, img, ur=None, z=None):
         self._adopt_mapping()
+        self._cur_ur, self._cur_z = ur, z
         if self.image_recorder is not None:
             self.image_recorder(img, t, self.state)
 
         if self.state == TrackState.NOT_INITIALIZED:
             with self.timer.stage("initialize"):
-                self._try_initialize(feats, t)
+                if z is not None:
+                    self._initialize_with_depth(feats, t)
+                else:
+                    self._try_initialize(feats, t)
         elif self.state == TrackState.OK:
             with self.timer.stage("track"):
                 self._track_ok(feats, t)
@@ -138,6 +180,33 @@ class SlamSystem:
         if self.state == TrackState.LOST:
             self._handle_lost(feats, t)
         return self.state
+
+    def _initialize_with_depth(self, feats, t):
+        """One-frame initialisation from stereo/RGB-D depth: a map point for
+        every feature with a valid depth, once there are
+        ``min_init_depth_points`` of them."""
+        z = self._cur_z
+        ok = feats.valid & (z > 0)
+        if int(torch.sum(ok)) < self.cfg.tracking.min_init_depth_points:
+            return
+        ms = self.ms
+        T0 = lie.se3_identity(device=self.device)
+        xyz_w = camera.unproject(self.K, feats.uv, depth=torch.clamp_min(z, 1e-6))
+        ms, ids = M.add_points(ms, xyz_w, feats.desc, ok, ms.n_kf,
+                               octave=feats.octave, angle=feats.angle)
+        assoc = torch.where(ids >= 0, ids, -1)
+        ms, kf0 = M.insert_keyframe(ms, T0, feats, t, assoc, ur=self._cur_ur)
+        self.ms = ms
+        self.last_kf_id = int(kf0)
+        self.last_kf_obs = int(torch.sum(assoc >= 0))
+        self.last_pose = T0
+        self.velocity = lie.se3_identity(device=self.device)
+        self.frames_since_kf = 0
+        self.state = TrackState.OK
+        self.stats["n_kf"] += 1
+        self._init_feats = None
+        self._log(f"[init] depth map created at t={t:.3f}")
+        self._log_pose(t, T0)
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats, t):
@@ -290,22 +359,34 @@ class SlamSystem:
                           "eviction+compaction; keyframe dropped", verbose.Level.QUIET)
                 return
             self._log(f"[map] capacity eviction freed {ms.max_kf - int(ms.n_kf)} KF slots")
-        ms, kid = M.insert_keyframe(ms, pose, feats, t, assoc)
-        self.ms = ms
+        ms, kid = M.insert_keyframe(ms, pose, feats, t, assoc, ur=self._cur_ur)
         kid_i = int(kid)
+        # stereo/RGB-D: spawn points from depth for the unmatched features
+        # (keyframes are made only while the mapping worker is idle, so the
+        # two never race for point slots)
+        if self._cur_z is not None:
+            xyz_w, make = stereo.backproject_new_points(
+                self.K, pose, feats.uv, self._cur_z, assoc >= 0, feats.valid,
+                max_new=self.cfg.tracking.max_new_depth_points,
+                th_depth=self.cfg.camera.th_depth)
+            ms, ids = M.add_points(ms, xyz_w, feats.desc, make, kid_i,
+                                   octave=feats.octave, angle=feats.angle)
+            ms = M.set_associations(ms, kid_i, torch.where(ids >= 0, ids, ms.kf_point[kid_i]))
+        self.ms = ms
         self.last_kf_id = kid_i
         self.last_kf_obs = int(torch.sum(ms.kf_point[kid_i] >= 0))
         self.last_pose = ms.kf_pose[kid_i]
         self.frames_since_kf = 0
         self.stats["n_kf"] += 1
 
+        use_stereo = self._cur_z is not None
         if self.mapper is not None and self.mapper.submit(
-            self.ms, kid_i, use_stereo=False, draw=self._next_draw(),
+            self.ms, kid_i, use_stereo=use_stereo, draw=self._next_draw(),
             kf_count=self.stats["n_kf"],
         ):
             return  # mapping overlaps; the result is adopted at a frame boundary
         # synchronous path (overlapped=False, or worker saturated)
-        out = MW.run_mapping_round(self.ms, self.K, self.cfg, kid_i, use_stereo=False,
+        out = MW.run_mapping_round(self.ms, self.K, self.cfg, kid_i, use_stereo=use_stereo,
                                    draw=self._next_draw(), kf_count=self.stats["n_kf"],
                                    timer=self.timer)
         self._apply_mapping(out)

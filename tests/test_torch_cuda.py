@@ -372,3 +372,70 @@ def test_mapping_worker_runs_on_the_submitters_stream(dev, monkeypatch):
     assert seen and all(s == side for s in seen)
     assert slam.stats.get("n_adopted", 0) >= 1
     assert bool(torch.isfinite(slam.ms.kf_pose).all())
+
+
+def depth_frames(n=1):
+    """The tiny depth scene (seed 5) with an 8 cm baseline: (system config,
+    sequence)."""
+    import dataclasses
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+        cfg.camera, baseline=0.08, th_depth=30.0, depth_factor=1.0))
+    seq = SyntheticSequence(n_frames=n, width=320, height=240, n_points=1500, seed=5, patch=3,
+                            K=cfg.intrinsics())
+    return cfg, seq
+
+
+def test_depth_from_rgbd_on_card_equals_cpu(dev):
+    """The same keypoints and depth map (pixel coordinates at .5 among them):
+    the card rounds half to even as the CPU does, and gates alike."""
+    from rumi_slam_tpu_torch.ops import stereo
+
+    cfg, seq = depth_frames()
+    _, depth, _ = seq.frame_rgbd(0)
+    rng = np.random.default_rng(0)
+    uv = np.concatenate([rng.uniform(0, [319, 239], (1000, 2)),
+                         np.floor(rng.uniform(0, [319, 239], (24, 2))) + 0.5]).astype(np.float32)
+    uv = torch.from_numpy(uv)
+    out = [stereo.depth_from_rgbd(depth.to(d), uv.to(d), cfg.camera.bf, depth_factor=1.0,
+                                  max_z=30.0) for d in (dev, "cpu")]
+    assert torch.equal(out[0][1].cpu(), out[1][1])
+    torch.testing.assert_close(out[0][0].cpu(), out[1][0], rtol=1e-6, atol=0)
+    assert int((out[1][1] > 0).sum()) > 100
+
+
+def test_match_stereo_on_card_equals_cpu(dev):
+    """One set of ORB features of a stereo pair (extracted on the CPU) through
+    ``match_stereo`` on the card and on the CPU: the same matches, so the
+    same ``ur`` and ``z``."""
+    from rumi_slam_tpu_torch.ops import stereo
+
+    cfg, seq = depth_frames()
+    img_l, img_r, _ = seq.frame_stereo(0, 0.08)
+    slam = SlamSystem(cfg, device="cpu")
+    fl, fr = slam._extract(img_l), slam._extract(img_r)
+    ur_c, z_c = stereo.match_stereo(fl, fr, cfg.camera.bf)
+    ur_g, z_g = stereo.match_stereo(Features(*(x.to(dev) for x in fl)),
+                                    Features(*(x.to(dev) for x in fr)), cfg.camera.bf)
+    assert torch.equal(ur_g.cpu(), ur_c)
+    torch.testing.assert_close(z_g.cpu(), z_c, rtol=1e-6, atol=0)
+    assert int((z_c > 0).sum()) > 30
+
+
+@pytest.mark.parametrize("mode", ["rgbd", "stereo"])
+def test_depth_drive_on_card(dev, mode):
+    """Six frames of the tiny depth drive on the card: initialised from depth
+    on the first frame, OK on every frame, the gated kernel launched once
+    for each frame tracked in OK."""
+    cfg, _ = depth_frames()
+    seq = SyntheticSequence(n_frames=6, width=320, height=240, n_points=1500, seed=5, patch=3,
+                            K=cfg.intrinsics(dev), device=dev)
+    slam = SlamSystem(cfg, device=dev)
+    before = fm.fused_match.launches
+    for i in range(len(seq)):
+        st = (slam.track_rgbd(*seq.frame_rgbd(i)) if mode == "rgbd"
+              else slam.track_stereo(*seq.frame_stereo(i, 0.08)))
+        assert st.name == "OK"
+    assert fm.fused_match.launches - before >= len(slam.timer.samples["track"]) == 5
+    assert slam.stats["n_kf"] >= 2

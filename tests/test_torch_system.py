@@ -269,26 +269,30 @@ def test_default_device_is_the_card():
 
 
 def test_unported_branches_raise():
-    """What the port does not carry raises, naming its ROADMAP item (14);
-    loop closing (11) and checkpoints (12) are ported and do not."""
+    """What the port does not carry raises, naming its ROADMAP item: the
+    sharded global BA (a ``mesh``, 17).  Loop closing (11), checkpoints
+    (12), depth input and camera models (14) are ported and do not; a
+    missing checkpoint is a ``FileNotFoundError``."""
+    from rumi_slam_tpu_torch.tracking import local_mapping
+
     tc = tiny_config()
-    assert tc == dataclasses.replace(tc, mapping=dataclasses.replace(
-        tc.mapping, loop_closing=True))
     assert dataclasses.asdict(tc) == dataclasses.asdict(jax_tiny_config())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SlamSystem(dataclasses.replace(tc, camera=dataclasses.replace(tc.camera, k1=0.1)),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SlamSystem(dataclasses.replace(tc, camera=dataclasses.replace(tc.camera, model="kb8")),
-                   device="cpu")
     slam = SlamSystem(tc, device="cpu")
-    img = torch.zeros((240, 320))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        slam.track_rgbd(img, img, 0.0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        slam.track_stereo(img, img, 0.0)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        local_mapping.global_bundle_adjustment(slam.ms, slam.K, 0, mesh=object())
     with pytest.raises(FileNotFoundError):
         slam.load_map("no_such_map.ckpt")
+
+
+def test_depth_modes_need_a_baseline():
+    """``track_rgbd`` and ``track_stereo`` raise ``ValueError`` without a
+    baseline, as the JAX facade does."""
+    img = torch.zeros((240, 320))
+    for slam in (SlamSystem(tiny_config(), device="cpu"), JaxSlam(jax_tiny_config())):
+        with pytest.raises(ValueError, match="baseline"):
+            slam.track_rgbd(img.numpy(), img.numpy(), 0.0)
+        with pytest.raises(ValueError, match="baseline"):
+            slam.track_stereo(img.numpy(), img.numpy(), 0.0)
 
 
 def test_localization_mode_inserts_no_keyframe(verify_drive):
