@@ -8,8 +8,9 @@ Drives the port's main paths on the card at the full ``Config()`` size
 per-frame monocular tracking step (``rumi_slam_tpu_torch.step``) and the
 monocular SLAM facade (``rumi_slam_tpu_torch.system.SlamSystem``) with loop
 closing, checkpoints and the rumination pipeline
-(``rumi_slam_tpu_torch.rumination``), and the facade's RGB-D and stereo
-input, in eleven phases, each of which raises on failure:
+(``rumi_slam_tpu_torch.rumination``), the facade's RGB-D and stereo input,
+and the evaluation harness, native edge runtime and inertial solvers around
+it, in twelve phases, each of which raises on failure:
 
 1. device: name, capability, versions, ``nvidia-smi`` name and power limit;
 2. build: ``csrc/fused_match.cu`` with nvcc into ``build/``;
@@ -83,8 +84,10 @@ input, in eleven phases, each of which raises on failure:
     clean renderings before the package's ``build()``), the same through
     ``AsyncRuminationShard`` (``last_error`` must stay None), the shard again
     with the live system's local mapping on its worker thread (``Config()``'s
-    own setting; its result depends on the threads' timing, so it must merge
-    into one finite map across the gap and its ATE is printed, not bounded),
+    own setting; its result depends on the threads' timing: it must merge
+    into one finite map across the gap, keep the JAX package's keyframe
+    counts in the same setting less ``OVL_KF_SLACK`` and meet
+    ``OVL_ATE_MAX_M``),
     and the package's own backend, which must fail as it does in the JAX package
     (the synthetic loss is a flat image).  The states up to the new submap,
     the OK share and the keyframe ATE are held to the JAX package's run of
@@ -104,7 +107,24 @@ input, in eleven phases, each of which raises on failure:
     ``match_stereo`` at 1024 x 1024.  Then the camera models on the card:
     ``_extract`` under TUM1's radtan camera and a KB8 camera against the
     CPU's on the rows whose raw keypoint is the same on both, and
-    ``undistort_points`` / ``kb8.unproject`` on 1024 seeded points.
+    ``undistort_points`` / ``kb8.unproject`` on 1024 seeded points;
+12. the harness, the runtime and the inertial solvers (``phase_harness``;
+    PIL and matplotlib stay off this path): (a) phase 6's 60 frames written
+    as 8-bit PGM in TUM layout with a settings YAML, replayed by
+    ``examples/run_tum.run_paced`` through the native TUM reader and frame
+    ring (built with g++ into ``build/``) at twice phase 6's measured time a
+    frame, then the driver's export: every frame tracked or counted as
+    dropped, phase 6's OK share and ATE over the tracked frames,
+    ``result.csv`` with ``RESULT_COLUMNS``, a gated launch per frame tracked
+    in OK; (a') the first 30 frames at real time, which the tracker cannot
+    keep up with: frames must drop and be counted; (b) ``harness.run_once``
+    over ``tests/torch_harness_drive.py``'s 60-frame ``GroundtruthSequence``
+    at full width with rumination on, held to the JAX package's row, with
+    ``rss_mb`` from the native runtime; (c) ``tests/torch_inertial_window.py``'s
+    visual-inertial window (10 keyframes, 9 x 50 IMU samples, 2000 points
+    with 8 observations each, 1024 points for the pose solve): preintegration
+    and the three solvers on the card and on the CPU, which must agree, with
+    the costs not rising, and the card's time of one call of each.
 
 ``python3 chip_smoke.py --sweep-blocks-per-sm`` runs phases 1-2 and then
 times both instantiations with the grid planned for 2 to 64 blocks an SM
@@ -1147,6 +1167,21 @@ JAX_RUMI_OK_SHARE = 100 / 110
 JAX_RUMI_NEW_MAP_FRAME = 48
 JAX_RUMI_ATE_M = 0.030678
 RUMI_ATE_MAX_M = 0.3
+# With the live system's mapping on its worker thread (``Config()``'s own
+# setting; `... tests/torch_rumination_drive.py --full --overlapped --async`)
+# the JAX package makes 14 live keyframes (27 in the merged map; 50 with
+# synchronous mapping) and merges with keyframe ATE 0.1186 m (0.1223 m
+# with the backend inline): it degrades as the port does (ROADMAP queue 3).
+# The async_overlapped run is held to JAX's keyframe counts less
+# OVL_KF_SLACK, and to OVL_ATE_MAX_M: its ATE swings with the back merge, the
+# known bimodal one of queue 3, which on an H100 gave 0.046-0.348 m over the
+# runs recorded in PERF.md (0.181 m with an inlier ratio of 0.18); a merge
+# gone wrong lands at metres.
+JAX_OVL_LIVE_KF = 14
+JAX_OVL_MERGED_KF = 27
+JAX_OVL_ATE_M = 0.1186
+OVL_KF_SLACK = 3
+OVL_ATE_MAX_M = 0.5
 _LETTER = {"NOT_INITIALIZED": "N", "OK": "O", "RECENTLY_LOST": "R", "LOST": "L"}
 
 
@@ -1356,13 +1391,19 @@ def rumination_run(cfg, seq, clean_seq, *, mode):
     kt, kp = slam.keyframe_trajectory()
     gt = torch.stack(seq.poses_gt).cpu().numpy()
     m = ate.evaluate_trajectory(kt, kp, seq.times, gt)
+    ate_max = OVL_ATE_MAX_M if overlapped else RUMI_ATE_MAX_M
     r.update(kf_ate_m=float(m["ate"]), kf_span_s=[float(kt.min()), float(kt.max())],
-             jax_kf_ate_m=JAX_RUMI_ATE_M, ate_max_m=RUMI_ATE_MAX_M)
+             jax_kf_ate_m=JAX_OVL_ATE_M if overlapped else JAX_RUMI_ATE_M, ate_max_m=ate_max)
     need(np.isfinite(kp).all() and kt.min() < seq.times[40] and kt.max() > seq.times[60],
          "the merged trajectory does not span the gap")
-    r["ate_within_bound"] = bool(m["ate"] <= RUMI_ATE_MAX_M)
-    need(np.isfinite(m["ate"]) and (overlapped or r["ate_within_bound"]),
-         f"keyframe ATE {m['ate']} m above {RUMI_ATE_MAX_M} m")
+    need(np.isfinite(m["ate"]) and m["ate"] <= ate_max,
+         f"keyframe ATE {m['ate']} m above {ate_max} m")
+    if overlapped:
+        r["jax_keyframes"] = dict(live=JAX_OVL_LIVE_KF, merged=JAX_OVL_MERGED_KF)
+        need(slam.stats["n_kf"] >= JAX_OVL_LIVE_KF - OVL_KF_SLACK
+             and r["kf_per_map"][0] >= JAX_OVL_MERGED_KF - OVL_KF_SLACK,
+             f"{slam.stats['n_kf']} live and {r['kf_per_map'][0]} merged keyframes, JAX "
+             f"{JAX_OVL_LIVE_KF} and {JAX_OVL_MERGED_KF}")
     return r
 
 
@@ -1539,6 +1580,316 @@ def phase_depth_modes():
     return runs
 
 
+# Phase 12: the evaluation harness, the native edge runtime and the inertial
+# solvers.  (a) and (a') replay phase 6's first frames written to disk as 8-bit
+# PGM in TUM layout through ``examples/run_tum.run_paced`` (the native reader
+# and ring; PIL and matplotlib stay off this path) and the driver's export;
+# (a) paces the replay at twice phase 6's measured time a frame in the same
+# call, so the tracker keeps up and is held to phase 6's bounds over the
+# frames it tracked; (a') replays at real time, which the tracker cannot keep
+# up with: the ring must drop frames and count them.  (b) is
+# ``harness.run_once`` over ``tests/torch_harness_drive.py``'s scenario (a
+# ``GroundtruthSequence`` along a handheld sweep at ``Config()`` widths,
+# rumination on), held to the JAX package's row of the same drive
+# (``tests/torch_harness_floor.json``, "full": CPU, 59 of 60 frames OK, 21
+# keyframes, keyframe ATE 0.002326 m) with phase 6's margins.  (c) is the
+# visual-inertial window of ``tests/torch_inertial_window.py`` (10 keyframes,
+# 200 Hz IMU with 50 samples an interval, 2000 points with 8 observations
+# each, 1024 points for the pose solve), solved on the card and on the CPU.
+TUM_FRAMES = 60
+REALTIME_FRAMES = 30
+TUM_YAML = ("%YAML:1.0\n"
+            "Camera1.fx: 525.0\nCamera1.fy: 525.0\nCamera1.cx: 319.5\nCamera1.cy: 239.5\n"
+            "Camera.width: 640\nCamera.height: 480\nCamera.fps: 30\n"
+            "ORBextractor.nFeatures: 1024\nORBextractor.nLevels: 8\n")
+# (c) the card against the CPU on the same inputs: orientations, positions and
+# points (quaternion components and metres), velocities (m/s), scale and the
+# window BA's final cost (relative).  The H100 (700 W) read at most 1.2e-6 in
+# gravity, 4.2e-7 in poses, 4.8e-6 in points, 3.6e-7 m/s, 1.9e-7 in scale and
+# 4e-7 in cost; the limits are about 20-100 times that.
+VI_POSE_ATOL = 1e-4
+VI_VEL_ATOL = 1e-3
+VI_SCALE_RTOL = 1e-5
+VI_COST_RTOL = 1e-4
+
+
+def _recording_slam():
+    """``SlamSystem`` that keeps each frame's state letter in ``states``."""
+    from rumi_slam_tpu_torch.system import SlamSystem
+
+    class RecordingSlam(SlamSystem):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.states = []
+
+        def track_monocular(self, img, t):
+            st = super().track_monocular(img, t)
+            self.states.append(_LETTER[st.name])
+            return st
+
+    return RecordingSlam
+
+
+def write_tum_layout(root, n_frames):
+    """Phase 6's first ``n_frames`` frames as 8-bit PGM in TUM layout, with
+    rgb.txt, groundtruth.txt (``io/trajectory.save_tum``) and a settings
+    YAML for the synthetic camera; returns the YAML's path."""
+    import torch
+
+    from rumi_slam_tpu_torch.config import Config
+    from rumi_slam_tpu_torch.io import trajectory
+    from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+
+    cfg = Config()
+    c = cfg.camera
+    seq = SyntheticSequence(n_frames=n_frames, width=c.width, height=c.height,
+                            K=cfg.intrinsics("cuda"), seed=4, device="cuda")
+    os.makedirs(os.path.join(root, "rgb"))
+    lines = []
+    for i in range(n_frames):
+        img, t = seq.frame(i)
+        arr = torch.clamp(torch.round(img), 0, 255).to(torch.uint8).cpu().numpy()
+        name = f"rgb/{t:.6f}.pgm"
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(f"P5\n{arr.shape[1]} {arr.shape[0]}\n255\n".encode() + arr.tobytes())
+        lines.append(f"{t:.6f} {name}")
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("# color images\n" + "\n".join(lines) + "\n")
+    trajectory.save_tum(os.path.join(root, "groundtruth.txt"), seq.times,
+                        torch.stack(seq.poses_gt).cpu().numpy())
+    yaml = os.path.join(root, "cam.yaml")
+    with open(yaml, "w") as f:
+        f.write(TUM_YAML)
+    return yaml
+
+
+def tum_replay(name, data_root, yaml, pace, out_dir):
+    """``run_paced`` + ``export`` (no plots) of the sequence at ``data_root``
+    on the card, phase 6's configuration read from ``yaml``."""
+    import csv
+    import dataclasses
+
+    import torch
+
+    from rumi_slam_tpu_torch.config import Config
+    from rumi_slam_tpu_torch.evaluation.harness import RESULT_COLUMNS
+    from rumi_slam_tpu_torch.examples import run_tum
+    from rumi_slam_tpu_torch.io import datasets
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+
+    cfg = run_tum.load_config(yaml, rgbd=False)
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
+        cfg.mapping, loop_closing=False, overlapped=False))
+    phase6 = Config()
+    phase6 = dataclasses.replace(phase6, mapping=dataclasses.replace(
+        phase6.mapping, loop_closing=False, overlapped=False))
+    if cfg != phase6:
+        raise RuntimeError(f"{name}: the settings file does not give phase 6's configuration")
+    seq = datasets.TumSequence(data_root)
+    slam = _recording_slam()(cfg, device="cuda")
+    # the main path: the launch counters start at 0 here
+    fm.fused_match.launches = 0
+    fm.match_bank.launches = 0
+    t0 = time.perf_counter()
+    drops, n_tracked = run_tum.run_paced(slam, None, seq, data_root, pace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_match": fm.fused_match.launches, "match_bank": fm.match_bank.launches}
+    row = run_tum.export(slam, None, seq, out_dir,
+                         {"dataset": name, "runtime_s": wall, "drops": drops,
+                          "n_tracked": n_tracked}, plots=False)
+    with open(os.path.join(out_dir, "result.csv")) as f:
+        header = next(csv.reader(f))
+    states = "".join(slam.states)
+    return dict(run=name, frames=len(seq), pace=pace,
+                replay_interval_ms=1e3 * float(np.median(np.diff(seq.times))) / pace,
+                drops=drops, n_tracked=n_tracked, states=states,
+                ok_share_tracked=states.count("O") / max(n_tracked, 1), n_kf=slam.stats["n_kf"],
+                ate_m=row.get("ate"), rate=row.get("rate"), wall_s=wall,
+                ms_per_tracked_frame=1e3 * wall / max(n_tracked, 1),
+                result_csv_columns_ok=header == RESULT_COLUMNS,
+                launches_fused_match=launches["fused_match"],
+                launches_match_bank=launches["match_bank"], tracked_in_ok=tracked_in_ok(slam),
+                stage_ms=slam.timer.stats())
+
+
+def harness_run_once():
+    """(b): ``run_once`` of ``tests/torch_harness_drive.py``'s scenario on the
+    card; the facade ``run_once`` builds is recorded for its stage times."""
+    import torch
+
+    import rumi_slam_tpu_torch.system as system_mod
+    from rumi_slam_tpu_torch.ops import fused_matcher as fm
+
+    drive = tests_module("torch_harness_drive")
+    made = []
+    base = system_mod.SlamSystem
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    fm.fused_match.launches = 0
+    fm.match_bank.launches = 0
+    system_mod.SlamSystem = Recorded
+    try:
+        row = drive.run("rumi_slam_tpu_torch", device="cuda")
+    finally:
+        system_mod.SlamSystem = base
+    torch.cuda.synchronize()
+    slam, = made
+    jax_row = json.loads(drive.FLOOR.read_text())["full"]
+    return dict(row, launches_fused_match=fm.fused_match.launches,
+                launches_match_bank=fm.match_bank.launches, tracked_in_ok=tracked_in_ok(slam),
+                stage_ms=slam.timer.stats(),
+                jax=dict(ok_share=jax_row["ok_share"], ate_m=jax_row["ate"],
+                         n_kf=jax_row["n_kf"]),
+                bounds=dict(ok_share_min=jax_row["ok_share"] - 0.05,
+                            ate_max_m=1.5 * jax_row["ate"] + 0.01))
+
+
+def inertial_window_on_card():
+    """(c): the three inertial solvers on the card and on the CPU, the same
+    numpy inputs; events around one more call of each on the card."""
+    import torch
+
+    from rumi_slam_tpu_torch.geometry import lie
+    from rumi_slam_tpu_torch.inertial import preintegration as P
+
+    W = tests_module("torch_inertial_window")
+    win = W.window(0)
+    t_gpu, t_cpu = W.to_device(win, "cuda"), W.to_device(win, "cpu")
+    card = W.solve_all(t_gpu, "cuda")
+    cpu = W.solve_all(t_cpu, "cpu")
+    ms = {}
+    for name, fn in W.solvers(t_gpu, "cuda").items():
+        if name != "inertial_only_0":
+            ms[name] = cuda_time_ms(fn, reps=1, warmup=0)
+    ms["preintegrate_9x50"] = cuda_time_ms(lambda: W.to_device(win, "cuda"), reps=1, warmup=0)
+
+    def gap(x, y):
+        return float((x.detach().cpu() - y.detach()).abs().max())
+
+    io, io0, pose, vi = (card[k] for k in ("inertial_only", "inertial_only_0", "pose_inertial",
+                                            "visual_inertial_ba"))
+    cio, cpose, cvi = (cpu[k] for k in ("inertial_only", "pose_inertial", "visual_inertial_ba"))
+    g0 = P.gravity_vector(io.q_wg)
+    r = dict(
+        shapes=dict(n_kf=len(win["qs"]), imu_samples=list(win["imu"][0].shape[:2]),
+                    points=len(win["X"]), observations=len(win["uv"]),
+                    pose_points=len(win["pose_X"])),
+        ms_per_call=ms,
+        inertial_only=dict(scale=float(io.scale), scale_cpu=float(cio.scale),
+                           cost=float(io.cost), cost_initial=float(io0.cost),
+                           gravity_gap=gap(lie.quat_rotate(io.q_wg, g0),
+                                           lie.quat_rotate(cio.q_wg, g0.cpu())),
+                           velocity_gap=gap(io.velocities, cio.velocities),
+                           scale_error=abs(float(io.scale) - W.TRUE_SCALE)),
+        pose_inertial=dict(q_gap=gap(pose.q_wb, cpose.q_wb), p_gap=gap(pose.p_wb, cpose.p_wb),
+                           v_gap=gap(pose.v, cpose.v), n_inliers=int(pose.n_inliers),
+                           n_inliers_cpu=int(cpose.n_inliers),
+                           p_error_m=float((pose.p_wb.cpu() - t_cpu["ps"][-1]).norm())),
+        visual_inertial_ba=dict(q_gap=gap(vi.q_wb, cvi.q_wb), p_gap=gap(vi.p_wb, cvi.p_wb),
+                                v_gap=gap(vi.v, cvi.v), points_gap=gap(vi.points, cvi.points),
+                                cost=float(vi.cost), cost_initial=float(vi.cost0),
+                                cost_cpu=float(cvi.cost),
+                                p_error_before_m=float(np.abs(win["p0"] - win["ps"]).max()),
+                                p_error_after_m=float((vi.p_wb.cpu() - t_cpu["ps"]).abs().max())))
+    fails = []
+    a_io, a_po, a_vi = r["inertial_only"], r["pose_inertial"], r["visual_inertial_ba"]
+    if not abs(a_io["scale"] - a_io["scale_cpu"]) <= VI_SCALE_RTOL * a_io["scale_cpu"]:
+        fails.append("inertial_only scale")
+    if not (a_io["gravity_gap"] <= VI_POSE_ATOL * 9.81 and a_io["velocity_gap"] <= VI_VEL_ATOL):
+        fails.append("inertial_only gravity or velocities")
+    if not a_io["cost"] <= a_io["cost_initial"]:
+        fails.append("inertial_only cost rose")
+    if not max(a_po["q_gap"], a_po["p_gap"]) <= VI_POSE_ATOL or not a_po["v_gap"] <= VI_VEL_ATOL:
+        fails.append("pose_inertial state")
+    if a_po["n_inliers"] != a_po["n_inliers_cpu"]:
+        fails.append("pose_inertial inliers")
+    if not (max(a_vi["q_gap"], a_vi["p_gap"], a_vi["points_gap"]) <= VI_POSE_ATOL
+            and a_vi["v_gap"] <= VI_VEL_ATOL):
+        fails.append("visual_inertial_ba state")
+    if not abs(a_vi["cost"] - a_vi["cost_cpu"]) <= VI_COST_RTOL * a_vi["cost_cpu"]:
+        fails.append("visual_inertial_ba cost")
+    if not a_vi["cost"] <= a_vi["cost_initial"]:
+        fails.append("visual_inertial_ba cost rose")
+    r["failed"] = fails
+    return r
+
+
+def phase_harness(drive):
+    """Phase 12: (a) paced TUM replay, (a') real-time replay, (b) run_once,
+    (c) the visual-inertial window; ``drive`` is phase 6's result."""
+    import shutil
+    import tempfile
+
+    from rumi_slam_tpu_torch.runtime import native
+
+    if not native.available():
+        raise RuntimeError(f"the native runtime did not build: {native.build_log[-1000:]}")
+    out = {}
+    ms6 = 1e3 * drive["wall_s"] / drive["frames"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tum_")
+    try:
+        data = os.path.join(tmp, "seq")
+        os.makedirs(data)
+        yaml = write_tum_layout(data, TUM_FRAMES)
+        # (a): the replay interval is twice phase 6's time a frame
+        pace = (1.0 / 30.0) / (2.0 * ms6 / 1e3)
+        a = tum_replay("tum_paced", data, yaml, pace, os.path.join(tmp, "out_paced"))
+        a.update(phase6_ms_per_frame=ms6,
+                 bounds=dict(ok_share_min=JAX_DRIVE_OK_SHARE - 0.05,
+                             ate_max_m=1.5 * JAX_DRIVE_ATE_M + 0.01))
+        emit(phase="harness", part="a", **a)
+        if a["drops"] + a["n_tracked"] != TUM_FRAMES:
+            raise RuntimeError(f"(a): {a['drops']} drops + {a['n_tracked']} tracked != {TUM_FRAMES}")
+        if a["ok_share_tracked"] < a["bounds"]["ok_share_min"]:
+            raise RuntimeError(f"(a): OK share {a['ok_share_tracked']} of the tracked frames")
+        if not (a["ate_m"] is not None and a["ate_m"] <= a["bounds"]["ate_max_m"]):
+            raise RuntimeError(f"(a): ATE {a['ate_m']} m above {a['bounds']['ate_max_m']} m")
+        if not a["result_csv_columns_ok"]:
+            raise RuntimeError("(a): result.csv does not have RESULT_COLUMNS")
+        if a["launches_fused_match"] < a["tracked_in_ok"]:
+            raise RuntimeError(f"(a): {a['launches_fused_match']} gated launches for "
+                               f"{a['tracked_in_ok']} frames tracked in OK")
+        out["tum_paced"] = a
+        # (a'): the first REALTIME_FRAMES frames at real time
+        rt = os.path.join(tmp, "realtime")
+        os.makedirs(rt)
+        with open(os.path.join(data, "rgb.txt")) as f:
+            rows = [ln for ln in f if not ln.startswith("#")][:REALTIME_FRAMES]
+        with open(os.path.join(rt, "rgb.txt"), "w") as f:
+            f.writelines(ln.replace(" rgb/", " ../seq/rgb/") for ln in rows)
+        a2 = tum_replay("tum_realtime", rt, yaml, 1.0, os.path.join(tmp, "out_realtime"))
+        emit(phase="harness", part="a_realtime", **a2)
+        if not (a2["drops"] > 0 and a2["drops"] + a2["n_tracked"] == REALTIME_FRAMES):
+            raise RuntimeError(f"(a'): {a2['drops']} drops, {a2['n_tracked']} tracked of "
+                               f"{REALTIME_FRAMES} at real time")
+        out["tum_realtime"] = a2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b = harness_run_once()
+    emit(phase="harness", part="b", **b)
+    if b["ok_share"] < b["bounds"]["ok_share_min"]:
+        raise RuntimeError(f"(b): OK share {b['ok_share']} below {b['bounds']['ok_share_min']}")
+    if not b["ate"] <= b["bounds"]["ate_max_m"]:
+        raise RuntimeError(f"(b): ATE {b['ate']} m above {b['bounds']['ate_max_m']} m")
+    if not b["rss_mb"] > 0:
+        raise RuntimeError(f"(b): rss_mb {b['rss_mb']}")
+    if b["launches_fused_match"] < b["tracked_in_ok"]:
+        raise RuntimeError(f"(b): {b['launches_fused_match']} gated launches for "
+                           f"{b['tracked_in_ok']} frames tracked in OK")
+    out["run_once"] = b
+    c = inertial_window_on_card()
+    emit(phase="harness", part="c", **c)
+    if c["failed"]:
+        raise RuntimeError(f"(c): {c['failed']}")
+    out["inertial"] = c
+    return out
+
+
 def kernel_entry(name, shape_result, launches, launches_by_path, all_results):
     """One entry of the ``kernels`` line: the times and the bound at the
     main path's shape, the largest error over every shape compared."""
@@ -1617,6 +1968,7 @@ def main():
     known = timed("9_known_answers", phase_known_answers, slam)
     rumi = timed("10_rumination", phase_rumination)
     depth = timed("11_depth_modes", phase_depth_modes)
+    harness = timed("12_harness", phase_harness, drive)
     emit(phase_seconds=seconds)
 
     def by_path(key):
@@ -1629,6 +1981,8 @@ def main():
             paths[f"rumination_{mode}"] = r[key]
         for name, r in depth.items():
             paths[f"depth_{name}"] = r[key]
+        for name in ("tum_paced", "tum_realtime", "run_once"):
+            paths[name] = harness[name][key]
         return paths
 
     emit(kernels=[

@@ -189,3 +189,22 @@ class ORBExtractor(nn.Module):
             desc=desc,
             valid=torch.cat(valids, 0),
         )
+
+
+def descriptors_at(img, uv, valid):
+    """Orientation and BRIEF descriptors for keypoints the caller gives
+    (level-0 pixels ``uv`` [N, 2]) — the reference's
+    CloudFrameComputeDescriptors (ORBextractor.cc:989: descriptors for
+    cloud-map keyframes whose keypoints came over the wire without them).
+
+    Returns (desc [N, 8] int32, angle [N]); invalid rows are zero."""
+    extractor = ORBExtractor().to(img.device)      # the sampling tables
+    yx = torch.stack([torch.round(uv[:, 1]), torch.round(uv[:, 0])], -1).to(torch.int64)
+    h, w = img.shape
+    yx = torch.minimum(torch.clamp_min(yx, 0), torch.tensor([h - 1, w - 1], device=img.device))
+    # blur once at image level (cheaper than per-patch, and border-correct)
+    both = image.gather_patches_multi(torch.stack([img, image.gaussian_blur(img)]), yx, PATCH_R)
+    angles = extractor.orientation(both[0])
+    desc = extractor.descriptors(both[1], angles)
+    return (torch.where(valid[:, None], desc, torch.zeros_like(desc)),
+            torch.where(valid, angles, torch.zeros_like(angles)))

@@ -1,6 +1,6 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur-complement elimination
-of the points (port of ``rumi_slam_tpu/optim/ba.py``; ``marginalize`` is not
-ported yet).
+of the points (port of ``rumi_slam_tpu/optim/ba.py``), and ``marginalize``, the Schur
+complement of one block of a dense system.
 
 Problem layout (static shapes):
   poses   [C, 7]   SE(3) T_cw per camera
@@ -165,3 +165,34 @@ def bundle_adjust(K, poses, points, cam_idx, pt_idx, uv, conf, cam_free, pt_free
     th = CHI2_MONO if ur is None else torch.where(ur >= 0, CHI2_STEREO, CHI2_MONO)
     return BAResult(poses=poses, points=points, cost=cost,
                     inlier_obs=(chi2 <= th) & (conf > 0))
+
+
+def marginalize(H, b, start: int, end: int):
+    """Schur-complement marginalization of block [start, end) out of a dense
+    (H, b) Gauss-Newton system — the reference's Optimizer::Marginalize
+    (Optimizer.h:94-96, used by its inertial sliding-window optimizers).
+
+    Returns (H', b') of the SAME shape with the marginalized rows/cols zeroed,
+    matching the reference's convention.  ``start``/``end`` are Python ints.
+    """
+    n = H.shape[0]
+    keep = torch.ones(n, dtype=torch.bool, device=H.device)
+    keep[start:end] = False
+    Haa = H[start:end, start:end]
+    # pseudo-inverse via eigendecomposition: the marginalized block is often
+    # rank-deficient (gauge freedom), exactly why the reference uses SVD here
+    w, V = torch.linalg.eigh(0.5 * (Haa + Haa.T))
+    big = w > 1e-8 * torch.max(torch.abs(w))
+    inv_w = torch.where(big, 1.0 / torch.where(big, w, torch.ones_like(w)), torch.zeros_like(w))
+    Haa_inv = (V * inv_w[None, :]) @ V.T
+    Hba = H[keep][:, start:end]
+    Hbb = H[keep][:, keep]
+    Hs = Hbb - Hba @ Haa_inv @ Hba.T
+    bs = b[keep] - Hba @ Haa_inv @ b[start:end]
+    # scatter back into full-size arrays with zeros at the marginalized block
+    idx = keep.nonzero()[:, 0]
+    H_out = torch.zeros_like(H)
+    H_out[idx[:, None], idx[None, :]] = Hs
+    b_out = torch.zeros_like(b)
+    b_out[keep] = bs
+    return H_out, b_out

@@ -439,3 +439,72 @@ def test_depth_drive_on_card(dev, mode):
         assert st.name == "OK"
     assert fm.fused_match.launches - before >= len(slam.timer.samples["track"]) == 5
     assert slam.stats["n_kf"] >= 2
+
+
+def _inertial_window():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_inertial_window as W
+
+    return W
+
+
+def test_preintegrate_on_card_equals_cpu(dev):
+    """Nine intervals of 50 IMU samples in one batched call, with padding rows:
+    each field within 1e-4 of its largest entry (450 float32 steps summed in
+    another order)."""
+    W = _inertial_window()
+    from rumi_slam_tpu_torch.inertial import preintegration as P
+
+    gyro, acc, dts = (torch.from_numpy(x) for x in W.window(1, n_points=200, n_pose_points=64)["imu"])
+    dts = dts.clone()
+    dts[:, -5:] = 0.0
+    cpu = P.preintegrate(gyro, acc, dts, P.zero_bias(device="cpu"))
+    card = P.preintegrate(gyro.to(dev), acc.to(dev), dts.to(dev), P.zero_bias(device=dev))
+    for a, b in zip(card[:-1], cpu[:-1]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4 * float(b.abs().max()))
+
+
+def test_inertial_solvers_on_card_equal_cpu(dev):
+    """The three inertial solvers on a reduced window (4 keyframes, 300
+    points): the card within 1e-4 of the CPU in orientations, positions and
+    points, 1e-3 m/s in velocities and 1e-5 in scale, the same pose
+    inliers, the cost never rising.  ``chip_smoke.py`` phase 12 (c) sets
+    these limits from its readings on the full window."""
+    W = _inertial_window()
+    win = W.window(2, n_kf=4, n_points=300, obs_per_point=3, n_pose_points=200)
+    card = W.solve_all(W.to_device(win, dev), dev)
+    cpu = W.solve_all(W.to_device(win, "cpu"), "cpu")
+    io, cio = card["inertial_only"], cpu["inertial_only"]
+    assert abs(float(io.scale) - float(cio.scale)) <= 1e-5 * float(cio.scale)
+    assert float(io.cost) <= float(card["inertial_only_0"].cost)
+    torch.testing.assert_close(io.velocities.cpu(), cio.velocities, rtol=0, atol=1e-3)
+    for name in ("pose_inertial", "visual_inertial_ba"):
+        a, b = card[name], cpu[name]
+        torch.testing.assert_close(a.q_wb.cpu(), b.q_wb, rtol=0, atol=1e-4)
+        torch.testing.assert_close(a.p_wb.cpu(), b.p_wb, rtol=0, atol=1e-4)
+        torch.testing.assert_close(a.v.cpu(), b.v, rtol=0, atol=1e-3)
+    assert int(card["pose_inertial"].n_inliers) == int(cpu["pose_inertial"].n_inliers)
+    vi = card["visual_inertial_ba"]
+    torch.testing.assert_close(vi.points.cpu(), cpu["visual_inertial_ba"].points, rtol=0,
+                               atol=1e-4)
+    assert float(vi.cost) <= float(vi.cost0)
+
+
+@pytest.mark.parametrize("rank_deficient", [False, True])
+def test_marginalize_on_card_equals_cpu(dev, rank_deficient):
+    from rumi_slam_tpu_torch.optim import ba
+
+    rng = np.random.default_rng(3)
+    J = rng.normal(size=(60, 30)).astype(np.float32)
+    if rank_deficient:
+        J[:, 11] = J[:, 10]
+    H, b = torch.from_numpy(J.T @ J), torch.from_numpy(rng.normal(size=30).astype(np.float32))
+    Hc, bc = ba.marginalize(H, b, 6, 15)
+    Hg, bg = ba.marginalize(H.to(dev), b.to(dev), 6, 15)
+    scale = float(H.abs().max())
+    torch.testing.assert_close(Hg.cpu(), Hc, rtol=0, atol=1e-4 * scale)
+    torch.testing.assert_close(bg.cpu(), bc, rtol=0, atol=1e-4 * max(float(b.abs().max()), 1.0))
+    assert not Hg[6:15].any() and not bg[6:15].any()

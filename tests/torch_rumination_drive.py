@@ -10,7 +10,7 @@ front, back -> front) plus a dense global BA leave one map.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_rumination_drive.py
         [--port] [--full] [--async] [--own-backend] [--seed N] [--frames N]
-        [--n-first N] [--default-k]
+        [--n-first N] [--default-k] [--overlapped]
 
 * default: the JAX package at ``tiny_config()`` (320x240); ``--port`` runs the
   port on the CPU instead.  The scene is rendered with the configuration's
@@ -29,6 +29,12 @@ front, back -> front) plus a dense global BA leave one map.
 * ``--own-backend``: the package's backend unchanged; the run stops at the
   first ``history`` row.
 * ``--async``: the build goes through ``AsyncRuminationShard``.
+* ``--overlapped``: the live system's local mapping runs on its worker thread
+  (``Config()``'s own setting); the default maps synchronously.  The port's
+  backend always maps inline; the JAX package's inherits the setting, and its
+  offline system then outruns its own worker and loses track
+  (``backend_failed``), so with ``--overlapped`` the drive hands the JAX
+  backend inline mapping too.
 
 It prints one JSON object: the state string (one letter per frame: N not
 initialised, O ok, R recently lost, L lost), ``stats``, the coordinator's
@@ -52,11 +58,11 @@ FPS = 30.0
 _LETTER = {"NOT_INITIALIZED": "N", "OK": "O", "RECENTLY_LOST": "R", "LOST": "L"}
 
 
-def scenario_config(cfg_mod, full: bool, n_first=None):
+def scenario_config(cfg_mod, full: bool, n_first=None, overlapped=False):
     """The scenario's configuration in either package (``cfg_mod`` is its
     ``config`` module): ``tiny_config()``, or ``Config()`` with tiny's depth
-    gates when ``full``; always ``reloc_window_s=0.1``, loop closing on and
-    synchronous mapping."""
+    gates when ``full``; always ``reloc_window_s=0.1`` and loop closing on;
+    local mapping on the worker thread when ``overlapped``, else synchronous."""
     tiny = cfg_mod.tiny_config()
     if full:
         base = cfg_mod.Config()
@@ -79,7 +85,8 @@ def scenario_config(cfg_mod, full: bool, n_first=None):
     if n_first is not None:
         cfg = dataclasses.replace(
             cfg, sampler=dataclasses.replace(cfg.sampler, n_new_track_first=n_first))
-    return cfg
+    return dataclasses.replace(
+        cfg, mapping=dataclasses.replace(cfg.mapping, overlapped=overlapped))
 
 
 def make_sequence(syn_mod, cfg, *, seed=SEED, frames=N_FRAMES, lost_span=LOST_SPAN,
@@ -142,7 +149,7 @@ def record_backend_states(backend_mod):
 
 def run(package="rumi_slam_tpu", *, full=False, use_async=False, own_backend=False,
         seed=SEED, frames=N_FRAMES, lost_span=LOST_SPAN, n_first=None, config_k=True,
-        device="cpu"):
+        overlapped=False, device="cpu"):
     """Drive the scenario in ``package``; returns the summary dict.  With
     ``own_backend`` the run stops at the first ``history`` row.  ``config_k``
     False renders with the sequence's default intrinsics (``make_sequence``)."""
@@ -153,7 +160,7 @@ def run(package="rumi_slam_tpu", *, full=False, use_async=False, own_backend=Fal
     sampler_mod, remote_mod = mod("rumination.sampler"), mod("rumination.remote")
     M, ate = mod("mapstate.map_state"), mod("evaluation.ate")
 
-    cfg = scenario_config(cfg_mod, full, n_first)
+    cfg = scenario_config(cfg_mod, full, n_first, overlapped)
     dev_kw = {"device": device} if port else {}
     seq = make_sequence(syn_mod, cfg, seed=seed, frames=frames, lost_span=lost_span,
                         config_k=config_k, **dev_kw)
@@ -168,6 +175,9 @@ def run(package="rumi_slam_tpu", *, full=False, use_async=False, own_backend=Fal
     try:
         slam = sys_mod.SlamSystem(cfg, **dev_kw)
         backend = backend_cls(cfg, **dev_kw)
+        if overlapped and not port:
+            backend.cfg = dataclasses.replace(backend.cfg, mapping=dataclasses.replace(
+                backend.cfg.mapping, overlapped=False))
         shard = (remote_mod.AsyncRuminationShard(cfg, backend=backend, **dev_kw)
                  if use_async else None)
         coord = coord_mod.RuminationCoordinator(
@@ -187,7 +197,10 @@ def run(package="rumi_slam_tpu", *, full=False, use_async=False, own_backend=Fal
                 while (shard.busy or coord._pending is not None) and time.time() < deadline:
                     coord.maybe_ruminate()
                     time.sleep(0.05)
+            slam.sync_mapping()
         finally:
+            if slam.mapper is not None:
+                slam.mapper.shutdown()
             if shard is not None:
                 shard.shutdown()
     finally:
@@ -197,6 +210,7 @@ def run(package="rumi_slam_tpu", *, full=False, use_async=False, own_backend=Fal
     counts = [int(M.map_kf_count(ms, m)) for m in range(int(ms.n_maps))]
     out = {
         "package": package, "full": full, "async": use_async, "own_backend": own_backend,
+        "overlapped": overlapped,
         "seed": seed, "frames": frames, "lost_span": list(lost_span), "config_k": config_k,
         "n_new_track_first": cfg.sampler.n_new_track_first,
         "states": "".join(states),
@@ -250,10 +264,13 @@ if __name__ == "__main__":
                     help="override sampler.n_new_track_first")
     ap.add_argument("--default-k", action="store_true",
                     help="render with the sequence's default intrinsics (0.8 x width)")
+    ap.add_argument("--overlapped", action="store_true",
+                    help="live local mapping on the worker thread")
     a = ap.parse_args()
     t0 = time.perf_counter()
     res = run("rumi_slam_tpu_torch" if a.port else "rumi_slam_tpu", full=a.full,
               use_async=a.use_async, own_backend=a.own_backend, seed=a.seed,
-              frames=a.frames, n_first=a.n_first, config_k=not a.default_k)
+              frames=a.frames, n_first=a.n_first, config_k=not a.default_k,
+              overlapped=a.overlapped)
     res["seconds"] = time.perf_counter() - t0
     print(json.dumps(_jsonable(res)), flush=True)

@@ -1,6 +1,7 @@
 """Profile the PyTorch port's monocular SLAM facade on one GPU.
 
     python -m tools.profile_torch_slam [--frames 60] [--lost-span FIRST END] [--ruminate]
+        [--mode mono|rgbd|stereo]
 
 Runs the drive of ``chip_smoke.py`` phase 6 (``SlamSystem.track_monocular``
 over ``SyntheticSequence(seed=4)`` at the full ``Config()`` size, loop
@@ -16,6 +17,12 @@ a CUDA device.
 ``--frames 80 --lost-span 20 22`` is the relocalisation drive of
 ``chip_smoke.py`` phase 8: the ``relocalize`` stage then shows the kernel time
 of ``tracker.relocalize_map``.
+
+``--mode rgbd`` / ``--mode stereo`` feed the same frames through
+``track_rgbd`` / ``track_stereo`` with the depth camera of ``chip_smoke.py``
+phase 11 (a) / (b) (``tests/torch_system_drive.py::depth_camera``: an 8 cm
+baseline, depth in metres); the rendering of the depth map or the right
+image is done once, before the timing, as the frames are.
 
 ``--ruminate`` is the rumination scenario of ``chip_smoke.py`` phase 10 (110
 frames of the sweep sequence, frames 45..50 featureless, the clear-view
@@ -47,12 +54,16 @@ from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
 from rumi_slam_tpu_torch.system import SlamSystem
 
 
-def drive(cfg, seq, marked=False, ruminate=None, prof=None, window=None):
+def drive(cfg, seq, marked=False, ruminate=None, prof=None, window=None, mode="mono"):
     """Run the drive on a fresh system; returns (system, wall seconds).
+    ``mode``: ``seq.frame(i)`` is fed to ``track_monocular``, ``track_rgbd`` or
+    ``track_stereo``.
     ``ruminate``: the clean sequence of the rumination scenario, or None.
     ``prof``: a profiler to run over the frames ``window = (first, last)``
     (the whole drive if None); the drive ends with the window."""
     slam = SlamSystem(cfg, device="cuda")
+    track = {"mono": slam.track_monocular, "rgbd": slam.track_rgbd,
+             "stereo": slam.track_stereo}[mode]
     coord = None
     if ruminate is not None:
         import chip_smoke
@@ -85,7 +96,7 @@ def drive(cfg, seq, marked=False, ruminate=None, prof=None, window=None):
             slam.timer.samples.clear()      # stage times of the window only
             prof.start()
         t = time.perf_counter()
-        slam.track_monocular(*seq.frame(i))
+        track(*seq.frame(i))
         if coord is not None:
             coord.maybe_ruminate()
         slam.frame_s.append(time.perf_counter() - t)
@@ -104,7 +115,11 @@ def main():
                     help="render frames FIRST <= i < END featureless")
     ap.add_argument("--ruminate", action="store_true",
                     help="the rumination scenario of chip_smoke.py phase 10")
+    ap.add_argument("--mode", choices=("mono", "rgbd", "stereo"), default="mono",
+                    help="the input of chip_smoke.py phase 11 (a) rgbd, (b) stereo")
     a = ap.parse_args()
+    if a.ruminate and a.mode != "mono":
+        raise SystemExit("profile_torch_slam: --ruminate drives the monocular input")
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slam: no CUDA device")
     clean = None
@@ -118,15 +133,21 @@ def main():
         cfg = Config()
         cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(
             cfg.mapping, loop_closing=False, overlapped=False))
+        if a.mode != "mono":
+            import chip_smoke
+
+            cfg = chip_smoke.tests_module("torch_system_drive").depth_camera(cfg)
         c = cfg.camera
         seq = SyntheticSequence(n_frames=a.frames, width=c.width, height=c.height,
                                 K=cfg.intrinsics("cuda"), seed=4, device="cuda",
                                 lost_span=tuple(a.lost_span) if a.lost_span else None)
-    frames = [seq.frame(i) for i in range(len(seq))]   # render once, outside the timing
+    render = {"mono": seq.frame, "rgbd": seq.frame_rgbd,
+              "stereo": lambda i: seq.frame_stereo(i, cfg.camera.baseline)}[a.mode]
+    frames = [render(i) for i in range(len(seq))]   # render once, outside the timing
     seq.frame = lambda i: frames[i]
 
-    drive(cfg, seq, ruminate=clean, window=(0, 12))     # warm-up (kernel build, caches)
-    slam, wall = drive(cfg, seq, ruminate=clean)
+    drive(cfg, seq, ruminate=clean, window=(0, 12), mode=a.mode)  # warm-up (build, caches)
+    slam, wall = drive(cfg, seq, ruminate=clean, mode=a.mode)
     window = None
     if a.ruminate:
         # profile from the frame before the loss to the frame after the one
@@ -135,7 +156,8 @@ def main():
         window = (chip_smoke.RUMI_LOST_SPAN[0] - 1, min(ran + 1, len(frames) - 1))
         wall = sum(slam.frame_s[window[0]:window[1] + 1])
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    slam_p, wall_p = drive(cfg, seq, marked=True, ruminate=clean, prof=prof, window=window)
+    slam_p, wall_p = drive(cfg, seq, marked=True, ruminate=clean, prof=prof, window=window,
+                           mode=a.mode)
     if window is not None:
         wall_p = sum(slam_p.frame_s[window[0]:window[1] + 1])
     ka = prof.key_averages()
@@ -174,7 +196,7 @@ def main():
                         "kernels": n_by_stage.get(name, 0)}
     stages["outside stages"] = {"device_s": dev_by_stage.get("outside stages", 0.0) / 1e6}
     print(json.dumps({
-        "frames": len(frames), "profiled_frames": list(window or (0, len(frames) - 1)),
+        "mode": a.mode, "frames": len(frames), "profiled_frames": list(window or (0, len(frames) - 1)),
         "n_kf": slam.stats["n_kf"],
         "rumination_history": getattr(slam, "rumination_history", None),
         "wall_s": wall, "wall_s_profiled": wall_p, "device_busy_s": dev_us / 1e6,
