@@ -69,8 +69,20 @@ class MapState(NamedTuple):
         return self.pt_xyz.shape[0]
 
 
+def _require_device(fn, device):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"map_state.{fn}: device {str(device)!r} asked for and no CUDA device is present "
+            "(pass device=\"cpu\" for the CPU)")
+    return device
+
+
 def empty(max_kf: int = 256, max_feat: int = 512, max_pt: int = 16384,
-          device="cpu") -> MapState:
+          device="cuda") -> MapState:
+    """An empty map on ``device`` (the card unless the caller asks for the
+    CPU; a host without one raises)."""
+    device = _require_device("empty", device)
     K, F, P = max_kf, max_feat, max_pt
     f32, i32 = torch.float32, torch.int32
 
@@ -111,9 +123,12 @@ def empty(max_kf: int = 256, max_feat: int = 512, max_pt: int = 16384,
     )
 
 
-def from_numpy(d, device="cpu") -> MapState:
-    """MapState from a dict of numpy arrays keyed by field name; uint32
-    descriptor words are reinterpreted as int32, not converted."""
+def from_numpy(d, device="cuda") -> MapState:
+    """MapState from a dict of numpy arrays keyed by field name (the JAX
+    package's state carried across), on the card unless ``device`` says
+    otherwise; uint32 descriptor words are reinterpreted as int32, not
+    converted."""
+    device = _require_device("from_numpy", device)
     fields = {}
     for name in MapState._fields:
         a = np.asarray(d[name])
@@ -385,7 +400,7 @@ def compact(ms: MapState):
     pt_map = np.full(P, -1, np.int32)
     pt_map[pt_rows] = np.arange(npt, dtype=np.int32)
 
-    out = to_numpy(empty(K, F, P))
+    out = to_numpy(empty(K, F, P, device="cpu"))
     for name, a in out.items():
         if name.startswith("kf_"):
             a[:nk] = host[name][kf_rows]

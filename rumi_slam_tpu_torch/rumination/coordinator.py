@@ -6,7 +6,7 @@ The coordinator owns a frame ring buffer (timestamp -> host image) and a
 ``maybe_ruminate`` is called once per frame: when two un-merged submaps exist
 and the new one has matured, it assembles the upload bundle, has the backend
 build the back submap, imports it as a third submap and runs the double merge
-(cloud -> front, back -> front) and a dense global BA.  With an
+(cloud -> front, back -> front) and a global BA (``post_merge_gba``).  With an
 ``AsyncRuminationShard`` the build overlaps tracking and the merge lands when
 ``poll`` delivers the CloudMap.
 
@@ -32,6 +32,7 @@ from ..config import Config
 from ..geometry import lie
 from ..mapstate import map_state as M
 from ..optim import ransac
+from ..parallel import distributed
 from ..system import SlamSystem, TrackState
 from ..tracking.local_mapping import global_bundle_adjustment
 from . import cloud_map as CM
@@ -66,6 +67,15 @@ def correct_pose(T_cw, S):
     """Re-express camera poses [..., 7] after their world was transformed by
     the Sim(3) S."""
     return merge_mod.correct_poses(T_cw, S)
+
+
+def post_merge_gba(ms, K, map_id, *, n_iters):
+    """The global BA after a merge: through the sharded PCG Schur engine when
+    ``distributed.ba_mesh()`` finds more than one card, else the dense Schur
+    solve.  Returns (ms, "pcg" or "dense")."""
+    mesh = distributed.ba_mesh()
+    ms = global_bundle_adjustment(ms, K, map_id, n_iters=n_iters, mesh=mesh)
+    return ms, "pcg" if mesh is not None else "dense"
 
 
 class RuminationCoordinator:
@@ -331,9 +341,8 @@ class RuminationCoordinator:
             slam.active_map_host = front
             if self.cfg.merge.run_gba:
                 with slam.timer.stage("ruminate_gba"):
-                    ms = global_bundle_adjustment(ms, slam.K, front,
-                                                  n_iters=self.cfg.merge.gba_iters)
-                info["gba"] = "dense"
+                    ms, info["gba"] = post_merge_gba(ms, slam.K, front,
+                                                     n_iters=self.cfg.merge.gba_iters)
             slam.ms = ms
             # the back map's world moved: recompute last_pose from its KF
             if slam.last_kf_id >= 0:

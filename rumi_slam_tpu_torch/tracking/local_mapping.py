@@ -1,7 +1,6 @@
 """Local mapping: new-point triangulation, duplicate fusion, windowed BA,
-culling, and the global BA over one submap (port of
-``rumi_slam_tpu/tracking/local_mapping.py``; the sharded global BA is ROADMAP
-queue 1 item 17).
+culling, and the global BA over one submap, dense or sharded (port of
+``rumi_slam_tpu/tracking/local_mapping.py``).
 
 Each function is MapState -> MapState and writes no tensor of its input.
 Points keep their global slot inside the BA problem; local BA compacts only
@@ -333,13 +332,12 @@ def global_bundle_adjustment(ms: M.MapState, K, map_id, *, n_iters: int = 12, me
     capacity.  Gauge: the two oldest KFs stay fixed.  It runs rarely: after
     a loop closure and after a rumination merge.
 
-    ``mesh`` other than None asked the JAX package for its sharded PCG
-    engine, which is not ported.
+    ``mesh``: a ``parallel.distributed.BaMesh`` routes the solve through the
+    sharded matrix-free PCG engine (``_global_ba_sharded``), the post-merge
+    GBA path when more than one card is visible.  None = the dense solve.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded global BA (mesh=...) is not ported to rumi_slam_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 17: sharded BA)")
+        return _global_ba_sharded(ms, K, map_id, mesh, n_iters=n_iters)
     prob = gba_problem(ms, map_id)
     if prob is None:
         return ms
@@ -348,3 +346,72 @@ def global_bundle_adjustment(ms: M.MapState, K, map_id, *, n_iters: int = 12, me
     return ms._replace(
         kf_pose=ms.kf_pose.index_put((kf_rows,), res.poses[: kf_rows.shape[0]]),
         pt_xyz=ms.pt_xyz.index_put((pt_rows,), res.points[: pt_rows.shape[0]]))
+
+
+def _global_ba_sharded(ms: M.MapState, K, map_id, mesh, *, n_iters: int,
+                       max_obs_per_point: int = 16):
+    """Sharded GBA: compact the submap (``C`` = its keyframes, no bucket
+    padding; only the valid observations), group observations by point (R
+    slots), shard points round-robin over ``mesh.size`` shards and run the
+    matrix-free PCG Schur solve on ``mesh.device``.  Observations beyond
+    ``max_obs_per_point`` for one landmark are dropped with a log line.  The
+    compaction runs on the host, as in the JAX package (GBA runs rarely)."""
+    import numpy as np
+
+    from ..parallel import sharded_ba
+    from ..utils import verbose
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    D = mesh.size
+    kf_rows = np.flatnonzero(host((ms.kf_map_id == map_id) & ms.kf_valid))
+    pt_rows = np.flatnonzero(host((ms.pt_map_id == map_id) & ms.pt_valid))
+    if len(kf_rows) < 3 or len(pt_rows) < 8:
+        return ms
+    C = len(kf_rows)
+    pt_local = np.full(ms.max_pt, -1, np.int64)
+    pt_local[pt_rows] = np.arange(len(pt_rows))
+
+    kp = host(ms.kf_point[kf_rows])                       # [C, F]
+    feat_ok = host(ms.kf_feat_valid[kf_rows])
+    obs_sel = (kp >= 0) & feat_ok & (pt_local[np.clip(kp, 0, None)] >= 0)
+    cam_idx = np.repeat(np.arange(C), ms.max_feat).reshape(kp.shape)[obs_sel]
+    pt_idx = pt_local[np.clip(kp, 0, None)][obs_sel]
+    uv = host(ms.kf_uv[kf_rows]).reshape(-1, 2)[obs_sel.reshape(-1)]
+    conf = host(octave_inv_sigma2(ms.kf_octave[kf_rows]))
+    # the dense path's down-weight of cloud-keyframe observations
+    conf = (conf * np.where(host(ms.kf_is_cloud[kf_rows])[:, None], 0.3, 1.0))[obs_sel]
+
+    part = sharded_ba.partition_problem_grouped(
+        cam_idx.astype(np.int32), pt_idx.astype(np.int32), uv.astype(np.float32),
+        conf.astype(np.float32), len(pt_rows), D, obs_per_point=max_obs_per_point)
+    if part["dropped_obs"]:
+        verbose.print_mess(
+            f"[gba] sharded GBA dropped {part['dropped_obs']} observations "
+            f"beyond {max_obs_per_point}/point", verbose.Level.QUIET)
+    Pl = part["pts_per_shard"]
+    X = host(ms.pt_xyz[pt_rows])
+    pts_sh = np.zeros((D, Pl, 3), np.float32)
+    rows = part["point_rows"]
+    for d in range(D):
+        ok = rows[d] < len(pt_rows)
+        pts_sh[d, ok] = X[rows[d][ok]]
+
+    mdev = ms.kf_pose.device
+    kf_t = torch.from_numpy(kf_rows).to(mdev)
+    res_poses, res_pts, _ = sharded_ba.sharded_bundle_adjust_pcg(
+        mesh, K, ms.kf_pose[kf_t], torch.from_numpy(pts_sh.reshape(D * Pl, 3)),
+        torch.from_numpy(part["cam_idx"].reshape(D * Pl, -1)),
+        torch.from_numpy(part["uv"].reshape(D * Pl, -1, 2)),
+        torch.from_numpy(part["conf"].reshape(D * Pl, -1)),
+        torch.arange(C) >= 2, n_iters=n_iters)
+
+    X_new = host(res_pts).reshape(D, Pl, 3)
+    X_out = X.copy()
+    for d in range(D):
+        ok = rows[d] < len(pt_rows)
+        X_out[rows[d][ok]] = X_new[d][ok]
+    pt_t = torch.from_numpy(pt_rows).to(mdev)
+    return ms._replace(kf_pose=ms.kf_pose.index_put((kf_t,), res_poses.to(mdev)),
+                       pt_xyz=ms.pt_xyz.index_put((pt_t,), torch.from_numpy(X_out).to(mdev)))

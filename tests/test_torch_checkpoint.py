@@ -27,7 +27,7 @@ def random_map_numpy(seed=0, K=6, F=16, P=40):
     """A MapState as a dict of numpy arrays with every field filled from the
     seed, descriptors as uint32 with the top bit set in places."""
     rng = np.random.default_rng(seed)
-    d = tM.to_numpy(tM.empty(K, F, P))
+    d = tM.to_numpy(tM.empty(K, F, P, device="cpu"))
     for name, a in d.items():
         if a.dtype == np.float32:
             d[name] = rng.normal(size=a.shape).astype(np.float32)
@@ -74,7 +74,7 @@ def _header(path):
 
 def test_port_checkpoint_loads_in_jax(tmp_path):
     d = random_map_numpy(2)
-    t_ms = tM.from_numpy(d)
+    t_ms = tM.from_numpy(d, device="cpu")
     path = tmp_path / "sub" / "port.ckpt"          # the directory is created
     digest = tC.save(t_ms, path)
     assert _header(path)["format_version"] == 2 and _header(path)["sha256"] == digest
@@ -87,7 +87,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path):
 
 def test_tampered_payload_raises(tmp_path):
     path = tmp_path / "m.ckpt"
-    tC.save(tM.from_numpy(random_map_numpy(3)), path)
+    tC.save(tM.from_numpy(random_map_numpy(3), device="cpu"), path)
     raw = bytearray(path.read_bytes())
     raw[-20] ^= 0x01
     path.write_bytes(bytes(raw))
@@ -99,7 +99,7 @@ def test_tampered_payload_raises(tmp_path):
 
 def test_wrong_version_raises(tmp_path):
     path = tmp_path / "m.ckpt"
-    tC.save(tM.from_numpy(random_map_numpy(4)), path)
+    tC.save(tM.from_numpy(random_map_numpy(4), device="cpu"), path)
     raw = path.read_bytes()
     n = int.from_bytes(raw[:8], "little")
     head = json.loads(raw[8:8 + n].decode())
@@ -112,7 +112,7 @@ def test_wrong_version_raises(tmp_path):
 
 def test_load_defaults_to_the_card(tmp_path):
     path = tmp_path / "m.ckpt"
-    tC.save(tM.from_numpy(random_map_numpy(5)), path)
+    tC.save(tM.from_numpy(random_map_numpy(5), device="cpu"), path)
     if torch.cuda.is_available():
         assert tC.load(path).kf_pose.is_cuda
     else:

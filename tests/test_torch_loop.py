@@ -49,7 +49,7 @@ def to_jax(t_ms):
 
 
 def to_torch(j_ms):
-    return tM.from_numpy({k: np.asarray(v) for k, v in j_ms._asdict().items()})
+    return tM.from_numpy({k: np.asarray(v) for k, v in j_ms._asdict().items()}, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -311,12 +311,28 @@ def test_global_bundle_adjustment():
 
 
 def test_global_bundle_adjustment_small_map_and_mesh():
+    """A one-keyframe submap is left as it is on both routes; with a mesh
+    the map (another submap's keyframe and a cloud keyframe among its rows)
+    goes through the sharded PCG engine and lands where JAX's does."""
+    from jax.sharding import Mesh
+
+    from conftest import cpu_mesh_devices
+    from rumi_slam_tpu_torch.parallel.distributed import BaMesh
+
     j_ms, K, _, _ = _gba_map()
     t_ms = to_torch(j_ms)
     out = tLM.global_bundle_adjustment(t_ms, T(K), 1, n_iters=3)     # one keyframe: no-op
     assert out is t_ms
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tLM.global_bundle_adjustment(t_ms, T(K), 0, mesh=object())
+    assert tLM.global_bundle_adjustment(t_ms, T(K), 1, mesh=BaMesh("cpu", 2)) is t_ms
+    devs = cpu_mesh_devices(4)
+    if devs is None:
+        pytest.skip("needs the virtual CPU mesh of tests/conftest.py")
+    out_j = jLM.global_bundle_adjustment(j_ms, K, 0, n_iters=6, mesh=Mesh(np.array(devs), ("ba",)))
+    out_t = tLM.global_bundle_adjustment(t_ms, T(K), 0, n_iters=6, mesh=BaMesh("cpu", 4))
+    np.testing.assert_allclose(out_t.kf_pose.numpy(), np.asarray(out_j.kf_pose), rtol=0, atol=2e-4)
+    np.testing.assert_allclose(out_t.pt_xyz.numpy(), np.asarray(out_j.pt_xyz), rtol=0, atol=5e-4)
+    # keyframe 3 belongs to submap 1 and stays where it was
+    np.testing.assert_array_equal(out_t.kf_pose[3].numpy(), t_ms.kf_pose[3].numpy())
 
 
 # ---------------------------------------------------------------------------

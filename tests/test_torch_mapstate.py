@@ -58,7 +58,7 @@ def built_map(seed=0, n_kf=4, n_pt=30):
         ms, _ = jM.insert_keyframe(ms, jnp.asarray(pose), jf, 0.1 * k + 0.05, jnp.asarray(assoc),
                                    map_id=0 if k < n_kf - 1 else 1)
     ms = ms._replace(pt_valid=ms.pt_valid.at[3].set(False), n_maps=jnp.int32(2))
-    return ms, tM.from_numpy(as_np(ms))
+    return ms, tM.from_numpy(as_np(ms), device="cpu")
 
 
 @pytest.fixture
@@ -80,7 +80,7 @@ def assert_same_tensors(a, b):
 
 def test_insert_keyframe_until_full_and_past_capacity():
     rng = np.random.default_rng(1)
-    jms, tms = jM.empty(K_CAP, F, P_CAP), tM.empty(K_CAP, F, P_CAP)
+    jms, tms = jM.empty(K_CAP, F, P_CAP), tM.empty(K_CAP, F, P_CAP, device="cpu")
     for k in range(K_CAP + 2):           # the last two are no-ops
         jf, tf = feats(rng)
         assoc = rng.integers(-1, P_CAP, F).astype(np.int32)
@@ -143,7 +143,7 @@ def refresh_case():
     kp = np.full((K_CAP, F), -1, np.int32)
     kp[0, 2], kp[0, 5], kp[0, 6], kp[0, 9] = 0, 3, 3, 7
     jms = jms._replace(kf_point=jnp.asarray(kp), kf_feat_valid=jnp.ones((K_CAP, F), bool))
-    return jms, tM.from_numpy(as_np(jms))
+    return jms, tM.from_numpy(as_np(jms), device="cpu")
 
 
 def test_refresh_point_descriptors_jax_loses_slot_0():
@@ -202,7 +202,7 @@ def test_local_window_with_ties(kf_id, window):
     """Equal covisibility weights come out lowest slot first, as lax.top_k
     orders them."""
     jms, _ = built_map(seed=6, n_kf=5, n_pt=6)   # few points: many equal weights
-    tms = tM.from_numpy(as_np(jms))
+    tms = tM.from_numpy(as_np(jms), device="cpu")
     ids_j, ok_j = jM.local_window(jms, kf_id, window=window)
     ids_t, ok_t = tM.local_window(tms, kf_id, window=window)
     np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
@@ -216,7 +216,7 @@ def test_compact_maps_and_fields(maps):
     jms = jms._replace(kf_valid=jms.kf_valid.at[1].set(False),
                        pt_valid=jms.pt_valid.at[jnp.arange(0, 30, 4)].set(False),
                        pt_ref_kf=jms.pt_ref_kf.at[5].set(2).at[6].set(1))
-    tms = tM.from_numpy(as_np(jms))
+    tms = tM.from_numpy(as_np(jms), device="cpu")
     before = unchanged(tms)
     out_j, kf_j, pt_j = jM.compact(jms)
     out_t, kf_t, pt_t = tM.compact(tms)
@@ -233,3 +233,17 @@ def test_submap_statistics(maps):
         assert float(tM.map_duration(tms, m)) == float(jM.map_duration(jms, m))
         np.testing.assert_allclose(float(tM.map_trajectory_curvature(tms, m)),
                                    float(jM.map_trajectory_curvature(jms, m)), rtol=1e-6)
+
+
+def test_empty_and_from_numpy_default_to_the_card():
+    """Both constructors place the map on the card unless asked for the CPU;
+    a host without a card raises, as ``checkpoint.load`` does."""
+    d = tM.to_numpy(tM.empty(2, 4, 8, device="cpu"))
+    if torch.cuda.is_available():
+        assert tM.empty(2, 4, 8).kf_pose.device.type == "cuda"
+        assert tM.from_numpy(d).pt_xyz.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tM.empty(2, 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tM.from_numpy(d)

@@ -62,7 +62,7 @@ def to_jax(t_ms):
 
 
 def to_torch(j_ms):
-    return tM.from_numpy({k: np.asarray(v) for k, v in j_ms._asdict().items()})
+    return tM.from_numpy({k: np.asarray(v) for k, v in j_ms._asdict().items()}, device="cpu")
 
 
 def assert_maps(t_ms, j_ms, *, exact=None, close=(), atol=SOLVE_ATOL):

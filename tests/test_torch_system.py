@@ -269,17 +269,18 @@ def test_default_device_is_the_card():
 
 
 def test_unported_branches_raise():
-    """What the port does not carry raises, naming its ROADMAP item: the
-    sharded global BA (a ``mesh``, 17).  Loop closing (11), checkpoints
-    (12), depth input and camera models (14) are ported and do not; a
-    missing checkpoint is a ``FileNotFoundError``."""
+    """Nothing of the port raises for want of a ROADMAP item any more: the
+    sharded global BA (a ``mesh``, item 17) runs, and on a fresh system's
+    empty map leaves it as it is.  A missing checkpoint is a
+    ``FileNotFoundError``."""
+    from rumi_slam_tpu_torch.parallel.distributed import BaMesh
     from rumi_slam_tpu_torch.tracking import local_mapping
 
     tc = tiny_config()
     assert dataclasses.asdict(tc) == dataclasses.asdict(jax_tiny_config())
     slam = SlamSystem(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        local_mapping.global_bundle_adjustment(slam.ms, slam.K, 0, mesh=object())
+    assert local_mapping.global_bundle_adjustment(slam.ms, slam.K, 0,
+                                                  mesh=BaMesh("cpu", 4)) is slam.ms
     with pytest.raises(FileNotFoundError):
         slam.load_map("no_such_map.ckpt")
 

@@ -78,7 +78,7 @@ def test_mapstate_roundtrip_through_numpy():
         n_pt=jnp.int32(40),
     )
     d = jax_ms_numpy(ms)
-    port = tM.from_numpy(d)
+    port = tM.from_numpy(d, device="cpu")
     assert port.pt_desc.dtype == torch.int32 and port.n_pt.shape == ()
     np.testing.assert_array_equal(port.pt_desc.numpy().view(np.uint32), d["pt_desc"])
     back = tM.to_numpy(port)
@@ -90,7 +90,7 @@ def test_mapstate_roundtrip_through_numpy():
 
 
 def test_mapstate_empty_equals_jax():
-    ours = tM.to_numpy(tM.empty(4, 8, 32))
+    ours = tM.to_numpy(tM.empty(4, 8, 32, device="cpu"))
     ref = jax_ms_numpy(jM.empty(4, 8, 32))
     for k in ref:
         assert ours[k].dtype == ref[k].dtype and ours[k].shape == ref[k].shape, k
@@ -156,7 +156,7 @@ def test_track_frame_matches_jax(radius):
     tf = TFeatures(**{k: t(v.view(np.int32) if k == "desc" else v) for k, v in f.items()})
     ms_j, tr_j = jtr.track_frame(ms, jnp.asarray(K), jf, jnp.asarray(pred), radius,
                                  img_w=W, img_h=H, fused=False)
-    ms_t, tr_t = ttr.track_frame(tM.from_numpy(jax_ms_numpy(ms)), t(K), tf, t(pred), radius,
+    ms_t, tr_t = ttr.track_frame(tM.from_numpy(jax_ms_numpy(ms), device="cpu"), t(K), tf, t(pred), radius,
                                  img_w=W, img_h=H)
     np.testing.assert_array_equal(tr_t.assoc.numpy(), np.asarray(tr_j.assoc))
     assert int(tr_t.n_inliers) == int(tr_j.n_inliers) > 100
@@ -226,7 +226,8 @@ def test_port_imports_without_jax():
     for m in ("system", "evaluation.ate", "geometry.alignment", "geometry.triangulation",
               "optim.ba", "optim.two_view", "optim.pnp", "optim.ransac",
               "tracking.local_mapping", "tracking.mapping_worker", "utils.profiling",
-              "utils.verbose"):
+              "utils.verbose", "parallel.sharded_ba", "parallel.distributed",
+              "examples.ate_experiment"):
         assert f"rumi_slam_tpu_torch.{m}" in names, m
 
 

@@ -34,7 +34,7 @@ PNG = b"\x89PNG\r\n\x1a\n"
 
 class _FakeSlam:
     def __init__(self):
-        ms = M.empty(8, 16, 64)
+        ms = M.empty(8, 16, 64, device="cpu")
         rng = np.random.default_rng(0)
         kf_valid = ms.kf_valid.clone()
         kf_valid[:3] = True
@@ -94,7 +94,7 @@ def test_draw_frame_and_covisibility(tmp_path):
     plot.draw_frame(tmp_path / "frame_plain.png", torch.from_numpy(img), feats)
     assert (tmp_path / "frame_plain.png").stat().st_size > 1000
 
-    plot.plot_covisibility(tmp_path / "covis.png", M.empty(8, n, 64))
+    plot.plot_covisibility(tmp_path / "covis.png", M.empty(8, n, 64, device="cpu"))
     assert (tmp_path / "covis.png").stat().st_size > 1000
     plot.plot_map(tmp_path / "map.png", _FakeSlam().ms)
     assert (tmp_path / "map.png").read_bytes()[:8] == PNG

@@ -46,7 +46,7 @@ def make_drive(cfg, n_frames: int, seed: int = 7):
 
 def run_port(cfg, frames, K, gt, ms_np):
     step = tstep.TrackingStep(cfg, torch.from_numpy(K))
-    ms = tM.from_numpy(ms_np)
+    ms = tM.from_numpy(ms_np, device="cpu")
     poses = [torch.from_numpy(gt[0])]
     out = []
     for i in range(1, len(frames)):
