@@ -109,14 +109,20 @@ class RuminationCoordinator:
 
     # ------------------------------------------------------------------
     def on_frame(self, img, t: float, state: TrackState):
-        host = img.detach().cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
-        self.ring.append(RecordedFrame(t, host))
-        if len(self.ring) > self.ring_capacity:
-            self.ring.pop(0)
-        if state in (TrackState.RECENTLY_LOST, TrackState.LOST, TrackState.NOT_INITIALIZED):
-            if self.slam.stats["n_new_maps"] > 0 or state != TrackState.NOT_INITIALIZED:
-                self.sampler.record(
-                    torch.as_tensor(img, dtype=torch.float32, device=self.slam.device), t, host)
+        """The system's ``image_recorder``: the frame's host copy into the
+        ring (it waits for the work queued before it), as the system's
+        ``on_frame`` stage."""
+        with self.slam.timer.stage("on_frame"):
+            host = (img.detach().cpu().numpy() if isinstance(img, torch.Tensor)
+                    else np.asarray(img))
+            self.ring.append(RecordedFrame(t, host))
+            if len(self.ring) > self.ring_capacity:
+                self.ring.pop(0)
+            if state in (TrackState.RECENTLY_LOST, TrackState.LOST,
+                         TrackState.NOT_INITIALIZED):
+                if self.slam.stats["n_new_maps"] > 0 or state != TrackState.NOT_INITIALIZED:
+                    self.sampler.record(torch.as_tensor(img, dtype=torch.float32,
+                                                        device=self.slam.device), t, host)
 
     # ------------------------------------------------------------------
     def _frames_for_times(self, times: np.ndarray) -> list[RecordedFrame]:

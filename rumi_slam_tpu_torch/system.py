@@ -286,19 +286,20 @@ class SlamSystem:
         ms, tr = tracker.track_frame(
             self.ms, self.K, feats, pose_pred, cfg.match_radius,
             img_w=cam.width, img_h=cam.height,
-            max_hamming=cfg.max_hamming, nn_ratio=cfg.nn_ratio,
+            max_hamming=cfg.max_hamming, nn_ratio=cfg.nn_ratio, timer=self.timer,
         )
         self.ms = ms
         if int(tr.n_inliers) < cfg.min_track_inliers:
             # fallback: reference-KF tracking (no motion prior)
-            tr = tracker.track_reference_kf(self.ms, self.K, feats, self.last_kf_id,
-                                            self.last_pose)
+            with self.timer.stage("track_ref_kf"):
+                tr = tracker.track_reference_kf(self.ms, self.K, feats, self.last_kf_id,
+                                                self.last_pose, timer=self.timer)
             if int(tr.n_inliers) < cfg.min_track_inliers:
                 # wider window from the predicted pose as a last resort
                 ms, tr = tracker.track_frame(
                     self.ms, self.K, feats, pose_pred, cfg.match_radius_wide,
                     img_w=cam.width, img_h=cam.height,
-                    max_hamming=matcher.TH_HIGH, nn_ratio=0.95,
+                    max_hamming=matcher.TH_HIGH, nn_ratio=0.95, timer=self.timer,
                 )
                 self.ms = ms
         if int(tr.n_inliers) < cfg.min_track_inliers:
@@ -386,9 +387,10 @@ class SlamSystem:
         ):
             return  # mapping overlaps; the result is adopted at a frame boundary
         # synchronous path (overlapped=False, or worker saturated)
-        out = MW.run_mapping_round(self.ms, self.K, self.cfg, kid_i, use_stereo=use_stereo,
-                                   draw=self._next_draw(), kf_count=self.stats["n_kf"],
-                                   timer=self.timer)
+        with self.timer.stage("mapping_round"):
+            out = MW.run_mapping_round(self.ms, self.K, self.cfg, kid_i, use_stereo=use_stereo,
+                                       draw=self._next_draw(), kf_count=self.stats["n_kf"],
+                                       timer=self.timer)
         self._apply_mapping(out)
         self.last_pose = self.ms.kf_pose[kid_i]
         self.last_kf_obs = int(torch.sum(self.ms.kf_point[kid_i] >= 0))

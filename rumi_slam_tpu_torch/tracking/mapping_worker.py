@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..mapstate import map_state as M
+from ..utils.profiling import stage
 from . import local_mapping, loop_closing
 
 
@@ -50,8 +51,8 @@ class MappingOutcome(NamedTuple):
 def run_mapping_round(ms: M.MapState, K, cfg, kf_id: int, *, use_stereo: bool, draw,
                       kf_count: int, timer=None) -> MappingOutcome:
     """One local-mapping round as a pure MapState -> MapState function.
-    ``timer``: an optional ``StageTimer``; the loop-closing block is its
-    ``loop_closing`` stage."""
+    ``timer``: an optional ``StageTimer``; the local BA is its ``local_ba``
+    stage, the loop-closing block its ``loop_closing`` stage."""
     snap = ms
     events = {"n_new": 0, "n_fused": 0, "loop": False}
     cam = cfg.camera
@@ -70,21 +71,22 @@ def run_mapping_round(ms: M.MapState, K, cfg, kf_id: int, *, use_stereo: bool, d
     ms, n_fused = local_mapping.fuse_with_neighbors(
         ms, K, kf_id, window=4, img_w=cam.width, img_h=cam.height)
     events["n_fused"] = int(n_fused)
-    ms = local_mapping.local_bundle_adjustment(
-        ms, K, kf_id,
-        window=cfg.mapping.local_window,
-        n_iters=cfg.mapping.local_ba_iters,
-        use_stereo=use_stereo,
-        bf=cam.bf,
-        fixed_ring=cfg.mapping.lba_fixed_ring,
-    )
+    with stage(timer, "local_ba"):
+        ms = local_mapping.local_bundle_adjustment(
+            ms, K, kf_id,
+            window=cfg.mapping.local_window,
+            n_iters=cfg.mapping.local_ba_iters,
+            use_stereo=use_stereo,
+            bf=cam.bf,
+            fixed_ring=cfg.mapping.lba_fixed_ring,
+        )
     ms = local_mapping.cull_points(ms)
     ms = M.refresh_point_descriptors(ms, kf_id)
     if cfg.mapping.kf_culling and kf_count % 4 == 0:
         ms = local_mapping.cull_keyframes(ms, kf_id)
     mc = cfg.mapping
     if mc.loop_closing and kf_count % mc.loop_check_interval == 0:
-        with timer.stage("loop_closing") if timer is not None else contextlib.nullcontext():
+        with stage(timer, "loop_closing"):
             ms = _loop_closing_round(ms, K, mc, kf_id, draw, events)
     return MappingOutcome(snap=snap, mapped=ms, events=events)
 
@@ -164,7 +166,7 @@ class MappingWorker:
             try:
                 # a new thread starts on the default stream: take the submitter's
                 with (torch.cuda.stream(task.stream) if task.stream is not None
-                      else contextlib.nullcontext()):
+                      else contextlib.nullcontext()), stage(self.timer, "mapping_round"):
                     out = run_mapping_round(task.ms, self.K, self.cfg, task.kf_id,
                                             use_stereo=task.use_stereo, draw=task.draw,
                                             kf_count=task.kf_count, timer=self.timer)

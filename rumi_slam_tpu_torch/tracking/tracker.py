@@ -26,6 +26,7 @@ from ..mapstate.map_state import MapState
 from ..ops import matcher, select
 from ..ops.fused_matcher import fused_match, match_bank
 from ..optim import pnp, pose_opt
+from ..utils.profiling import stage
 
 
 class TrackResult(NamedTuple):
@@ -80,20 +81,24 @@ def match_projected(ms: MapState, K, feats, pose_pred, radius, *, img_w: int,
 
 
 def track_frame(ms: MapState, K, feats, pose_pred, radius, *, img_w: int,
-                img_h: int, max_hamming=matcher.TH_HIGH, nn_ratio=0.9):
+                img_h: int, max_hamming=matcher.TH_HIGH, nn_ratio=0.9, timer=None):
     """Match frame features against the active submap's points around a pose
     prediction, then run motion-only BA (3 rounds x 6 LM iterations).
 
     ``radius``: projection search window in pixels (Python number).
+    ``timer``: an optional ``StageTimer``; the match is its ``track_match``
+    stage, the pose optimisation its ``pose_opt`` stage.
     Returns (ms with ``pt_visible``/``pt_found`` updated, TrackResult).
     """
-    idx, vis = match_projected(ms, K, feats, pose_pred, radius, img_w=img_w,
-                               img_h=img_h, max_hamming=max_hamming,
-                               nn_ratio=nn_ratio)
+    with stage(timer, "track_match"):
+        idx, vis = match_projected(ms, K, feats, pose_pred, radius, img_w=img_w,
+                                   img_h=img_h, max_hamming=max_hamming,
+                                   nn_ratio=nn_ratio)
     matched = idx >= 0
     X = ms.pt_xyz[idx.clamp_min(0).long()]
-    res = pose_opt.pose_optimization(K, pose_pred, X, feats.uv, matched,
-                                     n_rounds=3, n_iters=6)
+    with stage(timer, "pose_opt"):
+        res = pose_opt.pose_optimization(K, pose_pred, X, feats.uv, matched,
+                                         n_rounds=3, n_iters=6)
     assoc = torch.where(matched & res.inliers, idx, -1)
 
     # visibility bookkeeping for culling (MapPoint IncreaseVisible/Found)
@@ -112,9 +117,11 @@ def track_frame(ms: MapState, K, feats, pose_pred, radius, *, img_w: int,
 
 
 def track_reference_kf(ms: MapState, K, feats, kf_id, pose_init, *,
-                       max_hamming=matcher.TH_LOW, nn_ratio=0.8):
+                       max_hamming=matcher.TH_LOW, nn_ratio=0.8, timer=None):
     """Match frame descriptors against ONE keyframe's features (no spatial
-    window), take its feature->point associations, pose-optimize."""
+    window), take its feature->point associations, pose-optimize.
+    ``timer``: an optional ``StageTimer``; the pose optimisation is its
+    ``pose_opt`` stage."""
     kf_assoc = ms.kf_point[kf_id]
     has_pt = kf_assoc >= 0
     dist = matcher.hamming_matrix(feats.desc, ms.kf_desc[kf_id])
@@ -123,7 +130,8 @@ def track_reference_kf(ms: MapState, K, feats, kf_id, pose_init, *,
     pt = torch.where(idx >= 0, kf_assoc[idx.clamp_min(0).long()], -1)
     matched = pt >= 0
     X = ms.pt_xyz[pt.clamp_min(0).long()]
-    res = pose_opt.pose_optimization(K, pose_init, X, feats.uv, matched)
+    with stage(timer, "pose_opt"):
+        res = pose_opt.pose_optimization(K, pose_init, X, feats.uv, matched)
     assoc = torch.where(matched & res.inliers, pt, -1)
     return TrackResult(
         pose=res.pose,

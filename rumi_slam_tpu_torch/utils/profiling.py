@@ -1,9 +1,12 @@
-"""Per-stage wall-clock timing, a background RSS sampler and a device trace
-scope (port of ``rumi_slam_tpu/utils/profiling.py``).
+"""Per-stage wall-clock timing and a background RSS sampler (port of
+``rumi_slam_tpu/utils/profiling.py``).
 
 The timer reads the host clock.  On the card a stage's time is what the
 host spent in it, including any device sync the stage makes (a host read
-of a device value waits for the work queued before it)."""
+of a device value waits for the work queued before it).  While a
+``torch.profiler`` records on the calling thread, each stage is also a
+``record_function`` range ``slam/<name>``, so the stages lie on the device
+trace's clock; with no profiler a stage costs one flag check more."""
 
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import time
 from collections import defaultdict
 
 import numpy as np
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
 
 
 class StageTimer:
@@ -26,13 +31,18 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            if _profiler_enabled():
+                with record_function(f"slam/{name}"):
+                    yield
+            else:
+                yield
         finally:
             self.samples[name].append(time.perf_counter() - t0)
 
     def stats(self) -> dict:
         out = {}
-        for name, xs in self.samples.items():
+        # a copy: the mapping worker's thread may add a stage meanwhile
+        for name, xs in list(self.samples.items()):
             a = np.asarray(xs)
             out[name] = {
                 "n": len(a),
@@ -51,6 +61,13 @@ class StageTimer:
                 f"{s['median_ms']:7.2f} {s['max_ms']:7.2f} {s['total_s']:7.2f}s"
             )
         return "\n".join(rows)
+
+
+def stage(timer: StageTimer | None, name: str):
+    """``timer.stage(name)``, or a context that records nothing when there is
+    no timer (the optional ``timer`` argument of the tracking and mapping
+    functions)."""
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()
 
 
 class MemoryMonitor:
@@ -94,21 +111,3 @@ class MemoryMonitor:
             return self._rss() / 1e6
         return float(np.mean([s[1] for s in self.samples])) / 1e6
 
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """``torch.profiler`` trace of the host and the card over the ``with``
-    block, written to ``log_dir`` as a Chrome trace (view in Perfetto or
-    ``chrome://tracing``; the JAX package's scope writes a ``jax.profiler``
-    trace).  The profiler is yielded, so the caller can read
-    ``key_averages()``."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)) as prof:
-        yield prof

@@ -6,13 +6,13 @@
 Runs the drive of ``chip_smoke.py`` phase 6 (``SlamSystem.track_monocular``
 over ``SyntheticSequence(seed=4)`` at the full ``Config()`` size, loop
 closing off, synchronous mapping) twice, each time on a fresh system: once
-for the wall time, once under ``torch.profiler`` with each ``StageTimer``
-stage marked as a ``record_function`` range.  Prints the device (kernel)
-time of the drive over its wall time without the profiler as the device busy
-share; per stage, its host time and the kernel time launched in it, both
-under the profiler; the kernel launches, syncs and copies; then the kernels
-with the most device time and the operators with the most host time.  Needs
-a CUDA device.
+for the wall time, once under ``torch.profiler``, where each ``StageTimer``
+stage is the program's own ``record_function`` range ``slam/<name>``.
+Prints the device (kernel) time of the drive over its wall time without the
+profiler as the device busy share; per stage, its host time and the kernel
+time launched in it, both under the profiler; the kernel launches, syncs and
+copies; then the kernels with the most device time and the operators with
+the most host time.  Needs a CUDA device.
 
 ``--frames 80 --lost-span 20 22`` is the relocalisation drive of
 ``chip_smoke.py`` phase 8: the ``relocalize`` stage then shows the kernel time
@@ -29,10 +29,11 @@ frames of the sweep sequence, frames 45..50 featureless, the clear-view
 backend inline, loop closing on): the stages ``ruminate_bundle``,
 ``ruminate_backend``, ``ruminate_merge``, ``ruminate_gba`` and ``loop_closing``
 appear beside the others, each with its kernel time, its host time and the
-kernel launches made in it, and ``on_frame`` (the coordinator's per-frame
-copy of the image to the host).  The profiler then runs only from the frame
-before the loss to the frame after the rumination, and ``wall_s`` and the
-busy shares are those frames'; ``stage_wall`` is the whole unprofiled drive.  The backend's offline system runs inside
+kernel launches made in it, and ``on_frame`` (the coordinator's stage around
+its per-frame copy of the image to the host).  The profiler then runs only
+from the frame before the loss to the frame after the rumination, and
+``wall_s`` and the busy shares are those frames'; ``stage_wall`` is the
+whole unprofiled drive.  The backend's offline system runs inside
 ``ruminate_backend``; its own stages are not split out.
 """
 
@@ -40,21 +41,20 @@ from __future__ import annotations
 
 import argparse
 import bisect
-import contextlib
 import dataclasses
 import json
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from rumi_slam_tpu_torch.config import Config
 from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
 from rumi_slam_tpu_torch.system import SlamSystem
 
 
-def drive(cfg, seq, marked=False, ruminate=None, prof=None, window=None, mode="mono"):
+def drive(cfg, seq, ruminate=None, prof=None, window=None, mode="mono"):
     """Run the drive on a fresh system; returns (system, wall seconds).
     ``mode``: ``seq.frame(i)`` is fed to ``track_monocular``, ``track_rgbd`` or
     ``track_stereo``.
@@ -69,23 +69,6 @@ def drive(cfg, seq, marked=False, ruminate=None, prof=None, window=None, mode="m
         import chip_smoke
 
         coord = chip_smoke.clear_view_coordinator(slam, cfg, ruminate)
-        on_frame = coord.on_frame
-
-        def timed_on_frame(img, t, state):
-            # the per-frame copy of the image to the host (ring buffer)
-            with slam.timer.stage("on_frame"):
-                on_frame(img, t, state)
-
-        slam.image_recorder = timed_on_frame
-    if marked:
-        stage = slam.timer.stage
-
-        @contextlib.contextmanager
-        def marked_stage(name):
-            with record_function(f"stage/{name}"), stage(name):
-                yield
-
-        slam.timer.stage = marked_stage
     first, last = window or (0, len(seq) - 1)
     slam.frame_s = []
     torch.cuda.synchronize()
@@ -156,8 +139,7 @@ def main():
         window = (chip_smoke.RUMI_LOST_SPAN[0] - 1, min(ran + 1, len(frames) - 1))
         wall = sum(slam.frame_s[window[0]:window[1] + 1])
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    slam_p, wall_p = drive(cfg, seq, marked=True, ruminate=clean, prof=prof, window=window,
-                           mode=a.mode)
+    slam_p, wall_p = drive(cfg, seq, ruminate=clean, prof=prof, window=window, mode=a.mode)
     if window is not None:
         wall_p = sum(slam_p.frame_s[window[0]:window[1] + 1])
     ka = prof.key_averages()
@@ -169,8 +151,8 @@ def main():
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        if e.name.startswith("stage/"):
-            ranges.append((e.time_range.start, e.time_range.end, e.name[len("stage/"):]))
+        if e.name.startswith("slam/"):
+            ranges.append((e.time_range.start, e.time_range.end, e.name[len("slam/"):]))
         else:
             kernels.append((e.time_range.start, e.time_range.end - e.time_range.start))
     ranges.sort()
