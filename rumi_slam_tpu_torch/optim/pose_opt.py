@@ -7,15 +7,28 @@ damping decisions stay on the device as ``torch.where`` selections, and the
 6x6 solve is ``torch.linalg.solve_ex``, so the loop never waits for the
 device: ``torch.linalg.solve`` would check its info and sync the host on
 each of the iterations.
+
+On the card the monocular loop is some 6,500 small kernels for 3 x 6
+iterations, and queuing them costs far more host time than the device needs
+to run them.  So ``pose_optimization`` captures the loop once per thread,
+problem size, schedule and algorithm mode into a CUDA graph and replays it
+on every later call: the same kernels in the same order on the same shapes,
+so the results equal the eager loop's bit for bit.  A thread copies its
+inputs in and replays on a stream of its own, ordered after and before the
+caller's stream, so one graph serves the thread whatever stream is current.
+On the CPU the loop runs eagerly.  The module's ``captures`` counts the
+graphs captured; ``prepare`` captures a system's shapes up front.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 
 from ..geometry import camera, lie
+from ..utils.profiling import stage
 from . import robust
 
 CHI2_MONO = 5.991
@@ -40,23 +53,9 @@ def _normal_equations(K, pose, X, uv, w, inv_sigma2):
     return H, g, cost, chi2
 
 
-def pose_optimization(K, pose0, X_w, uv, valid, inv_sigma2=None, *,
-                      n_rounds: int = 4, n_iters: int = 10):
-    """Optimize a single camera pose against fixed world points.
-
-    Args:
-      K: [4] intrinsics.  pose0: [7] initial T_cw.  X_w: [N, 3] fixed world
-      points.  uv: [N, 2] observations.  valid: [N] bool.
-      inv_sigma2: [N] per-observation information; None = 1.
-
-    ``n_rounds`` rounds of ``n_iters`` LM iterations, with chi-square
-    (5.991) outlier re-classification after each round.  Returns
-    PoseOptResult; ``inliers`` is the classification at the final pose.
-    """
-    n = X_w.shape[0]
+def _lm_loop(K, pose0, X_w, uv, valid, inv_sigma2, n_rounds: int, n_iters: int):
+    """The mathematics of :func:`pose_optimization`, for both of its paths."""
     dev = X_w.device
-    if inv_sigma2 is None:
-        inv_sigma2 = torch.ones((n,), dtype=torch.float32, device=dev)
     w0 = valid.to(torch.float32)
     eye = torch.eye(6, dtype=torch.float32, device=dev)
 
@@ -86,6 +85,127 @@ def pose_optimization(K, pose0, X_w, uv, valid, inv_sigma2=None, *,
         n_inliers=torch.sum(inliers.to(torch.int32)),
         cost=cost,
     )
+
+
+captures = 0    # graphs captured in the process
+
+_local = threading.local()        # .graphs: key -> _Graph, .sides: device -> stream
+_capture_lock = threading.Lock()  # one capture at a time in the process
+
+
+def _side_stream(dev):
+    """This thread's stream for the graphs of ``dev``: every capture and
+    replay of the thread runs on it, whatever stream is current."""
+    sides = getattr(_local, "sides", None)
+    if sides is None:
+        sides = _local.sides = {}
+    side = sides.get(dev)
+    if side is None:
+        side = sides[dev] = torch.cuda.Stream(dev)
+    return side
+
+
+class _Graph:
+    """One captured loop: static inputs (K, pose0, X_w, uv, valid,
+    inv_sigma2), the graph, and the static outputs it writes."""
+
+    def __init__(self, args, n_rounds, n_iters, side):
+        global captures
+        dev = args[2].device
+        self.inputs = [torch.empty(a.shape, dtype=a.dtype, device=dev) for a in args[:5]]
+        self.inputs.append(torch.empty((args[2].shape[0],), dtype=_weight_dtype(args[5]),
+                                       device=dev))
+        self.graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with _capture_lock, torch.cuda.stream(side):
+            self._load(args)
+            # the warm-up makes the side stream's library handles and
+            # workspaces before the capture
+            _lm_loop(*self.inputs, n_rounds, n_iters)
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                self.out = _lm_loop(*self.inputs, n_rounds, n_iters)
+            captures += 1
+
+    def _load(self, args):
+        # few calls: under a busy worker thread each one may wait for the interpreter
+        if args[5] is None:
+            torch._foreach_copy_(self.inputs[:5], list(args[:5]))
+            self.inputs[5].fill_(1.0)
+        else:
+            torch._foreach_copy_(self.inputs, list(args))
+
+    def __call__(self, args, side):
+        cur = torch.cuda.current_stream(side.device)
+        side.wait_stream(cur)      # the inputs, and the last call's clones
+        with torch.cuda.stream(side):
+            self._load(args)
+            self.graph.replay()
+        cur.wait_stream(side)
+        # the callers keep results across calls: never hand out the static outputs
+        return PoseOptResult(*(t.clone() for t in self.out))
+
+
+def _weight_dtype(inv_sigma2):
+    return torch.float32 if inv_sigma2 is None else inv_sigma2.dtype
+
+
+def _graph(args, n_rounds, n_iters):
+    """This thread's graph of the loop for the problem's size, types and
+    schedule and for the algorithms in force (the deterministic ones capture
+    other kernels), captured on the first call that needs it."""
+    X_w = args[2]
+    key = (X_w.device, X_w.shape[0],
+           tuple(a.dtype for a in args[:5]) + (_weight_dtype(args[5]),), n_rounds, n_iters,
+           torch.are_deterministic_algorithms_enabled())
+    graphs = getattr(_local, "graphs", None)
+    if graphs is None:
+        graphs = _local.graphs = {}
+    side = _side_stream(X_w.device)
+    g = graphs.get(key)
+    if g is None:
+        g = graphs[key] = _Graph(args, n_rounds, n_iters, side)
+    return g, side
+
+
+def prepare(device, n: int, schedules):
+    """Capture this thread's graphs for problems of ``n`` observations under
+    each ``(n_rounds, n_iters)`` of ``schedules`` now, so that no later call
+    pays for a capture (a no-op off the card)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    args = (torch.zeros(4, device=device), torch.zeros(7, device=device),
+            torch.zeros(n, 3, device=device), torch.zeros(n, 2, device=device),
+            torch.zeros(n, dtype=torch.bool, device=device), None)
+    for n_rounds, n_iters in schedules:
+        _graph(args, n_rounds, n_iters)
+
+
+def pose_optimization(K, pose0, X_w, uv, valid, inv_sigma2=None, *,
+                      n_rounds: int = 4, n_iters: int = 10, timer=None):
+    """Optimize a single camera pose against fixed world points.
+
+    Args:
+      K: [4] intrinsics.  pose0: [7] initial T_cw.  X_w: [N, 3] fixed world
+      points.  uv: [N, 2] observations.  valid: [N] bool.
+      inv_sigma2: [N] per-observation information; None = 1.
+      timer: an optional ``StageTimer``; a call answered by a CUDA graph is
+      its ``pose_opt_graph`` stage.
+
+    ``n_rounds`` rounds of ``n_iters`` LM iterations, with chi-square
+    (5.991) outlier re-classification after each round.  Returns
+    PoseOptResult; ``inliers`` is the classification at the final pose.
+    Tensors on the card run a CUDA graph of the loop (module docstring);
+    the results are new tensors either way.
+    """
+    if X_w.device.type == "cuda":
+        args = (K, pose0, X_w, uv, valid, inv_sigma2)
+        with stage(timer, "pose_opt_graph"):
+            g, side = _graph(args, n_rounds, n_iters)
+            return g(args, side)
+    if inv_sigma2 is None:
+        inv_sigma2 = torch.ones((X_w.shape[0],), dtype=torch.float32, device=X_w.device)
+    return _lm_loop(K, pose0, X_w, uv, valid, inv_sigma2, n_rounds, n_iters)
 
 
 def _normal_equations_stereo(K, bf, pose, X, uv, ur, w, inv_sigma2):

@@ -34,7 +34,7 @@ from .mapstate import checkpoint
 from .mapstate import map_state as M
 from .ops import matcher, stereo
 from .ops.orb import ORBExtractor
-from .optim import ba, ransac, two_view
+from .optim import ba, pose_opt, ransac, two_view
 from .tracking import local_mapping, tracker
 from .tracking import mapping_worker as MW
 from .utils import verbose
@@ -49,6 +49,12 @@ class TrackState(enum.Enum):
 
 
 class SlamSystem:
+    # the frame after a keyframe at which the tracker adopts that keyframe's
+    # mapping round, waiting for it there if it is not done, and not before:
+    # which map a frame tracks against then does not depend on how fast
+    # tracking runs beside the worker thread
+    ADOPT_AFTER = 2
+
     def __init__(self, config: Config | None = None, *, image_recorder=None, device="cuda"):
         """``device``: where the system's state and every frame's work live.
         The default is the card, and a host without one raises; pass
@@ -103,6 +109,10 @@ class SlamSystem:
         verbose.set_level(self.cfg.verbosity)
         self._log = verbose.print_mess
         self.mapper = MW.MappingWorker(self.cfg, self.K, self.timer) if mc.overlapped else None
+        self._round_age: Optional[int] = None  # frames since the round in flight was submitted
+        # the pose loop's graphs on the card for this frame size: track_frame's
+        # 3 x 6, and the 4 x 10 of reference-KF tracking and relocalisation
+        pose_opt.prepare(self.device, o.n_features, ((3, 6), (4, 10)))
 
     # ------------------------------------------------------------------
     def _next_draw(self):
@@ -385,6 +395,7 @@ class SlamSystem:
             self.ms, kid_i, use_stereo=use_stereo, draw=self._next_draw(),
             kf_count=self.stats["n_kf"],
         ):
+            self._round_age = 0
             return  # mapping overlaps; the result is adopted at a frame boundary
         # synchronous path (overlapped=False, or worker saturated)
         with self.timer.stage("mapping_round"):
@@ -411,14 +422,19 @@ class SlamSystem:
             self._log("[loop] closed during mapping round")
 
     def _adopt_mapping(self):
-        """Adopt a finished mapping round at the frame boundary."""
+        """Adopt the mapping round in flight at the frame boundary
+        ``ADOPT_AFTER`` frames after its keyframe."""
         if self.mapper is None:
             return
-        out = self.mapper.poll()
-        if out is not None:
-            with self.timer.stage("adopt_mapping"):
-                self._apply_mapping(out)
-            self.stats["n_adopted"] = self.stats.get("n_adopted", 0) + 1
+        if self._round_age is not None:
+            self._round_age += 1
+            if self._round_age >= self.ADOPT_AFTER:
+                self._round_age = None
+                out = self.mapper.flush()
+                if out is not None:
+                    with self.timer.stage("adopt_mapping"):
+                        self._apply_mapping(out)
+                    self.stats["n_adopted"] = self.stats.get("n_adopted", 0) + 1
         self._maybe_compact()
 
     def sync_mapping(self):
@@ -426,6 +442,7 @@ class SlamSystem:
         touches the MapState during structural host operations."""
         if self.mapper is None:
             return
+        self._round_age = None
         out = self.mapper.flush()
         if out is not None:
             self._apply_mapping(out)

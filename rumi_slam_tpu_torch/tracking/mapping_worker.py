@@ -8,7 +8,9 @@ worker thread (port of ``rumi_slam_tpu/tracking/mapping_worker.py``).
   culling, cadenced loop closing) on the snapshot and produces a new
   MapState.  No function of the round writes into a tensor of its input, so
   the snapshot stays as it was.
-* The tracker adopts the result at a frame boundary by a three-way merge.
+* The tracker adopts the result at a frame boundary by a three-way merge
+  (``SlamSystem.ADOPT_AFTER`` frames after the keyframe, waiting for the
+  worker there if need be).
 
 On the card the worker thread runs its round on the stream that was current
 where the task was submitted (the default stream, unless the caller runs the

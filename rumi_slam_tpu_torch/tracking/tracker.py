@@ -87,7 +87,8 @@ def track_frame(ms: MapState, K, feats, pose_pred, radius, *, img_w: int,
 
     ``radius``: projection search window in pixels (Python number).
     ``timer``: an optional ``StageTimer``; the match is its ``track_match``
-    stage, the pose optimisation its ``pose_opt`` stage.
+    stage, the pose optimisation its ``pose_opt`` stage (with a
+    ``pose_opt_graph`` stage inside it on the card).
     Returns (ms with ``pt_visible``/``pt_found`` updated, TrackResult).
     """
     with stage(timer, "track_match"):
@@ -98,7 +99,7 @@ def track_frame(ms: MapState, K, feats, pose_pred, radius, *, img_w: int,
     X = ms.pt_xyz[idx.clamp_min(0).long()]
     with stage(timer, "pose_opt"):
         res = pose_opt.pose_optimization(K, pose_pred, X, feats.uv, matched,
-                                         n_rounds=3, n_iters=6)
+                                         n_rounds=3, n_iters=6, timer=timer)
     assoc = torch.where(matched & res.inliers, idx, -1)
 
     # visibility bookkeeping for culling (MapPoint IncreaseVisible/Found)
@@ -131,7 +132,7 @@ def track_reference_kf(ms: MapState, K, feats, kf_id, pose_init, *,
     matched = pt >= 0
     X = ms.pt_xyz[pt.clamp_min(0).long()]
     with stage(timer, "pose_opt"):
-        res = pose_opt.pose_optimization(K, pose_init, X, feats.uv, matched)
+        res = pose_opt.pose_optimization(K, pose_init, X, feats.uv, matched, timer=timer)
     assoc = torch.where(matched & res.inliers, pt, -1)
     return TrackResult(
         pose=res.pose,

@@ -5,6 +5,8 @@ runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -15,9 +17,10 @@ from rumi_slam_tpu_torch.mapstate import map_state as M
 from rumi_slam_tpu_torch.ops import fused_matcher as fm
 from rumi_slam_tpu_torch.ops import matcher
 from rumi_slam_tpu_torch.ops.orb import Features
-from rumi_slam_tpu_torch.optim import ransac
+from rumi_slam_tpu_torch.optim import pose_opt, ransac
 from rumi_slam_tpu_torch.system import SlamSystem
 from rumi_slam_tpu_torch.tracking import tracker
+from rumi_slam_tpu_torch.utils.profiling import StageTimer
 
 pytestmark = pytest.mark.cuda
 
@@ -560,3 +563,144 @@ def test_sharded_gba_on_card_equals_cpu(dev):
     assert out_g.kf_pose.is_cuda
     torch.testing.assert_close(out_g.kf_pose.cpu(), out_c.kf_pose, rtol=0, atol=1e-3)
     torch.testing.assert_close(out_g.pt_xyz.cpu(), out_c.pt_xyz, rtol=0, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# motion-only pose optimisation replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+def pose_problem(n, seed, device):
+    """n points 3-8 m in front of a camera, observed with 0.5 px of noise,
+    a fifth of them moved by up to 30 px (outliers) and 5% invalid; the
+    start pose is the true one perturbed."""
+    from rumi_slam_tpu_torch.geometry import camera, lie
+
+    g = torch.Generator().manual_seed(seed)
+    K = torch.tensor([260.0, 260.0, 159.5, 119.5])
+    pose = lie.se3_retract(lie.se3_identity(), torch.tensor([0.01, 0.03, -0.02, 0.05, -0.02, 0.03]))
+    X = torch.rand(n, 3, generator=g) * torch.tensor([4.0, 3.0, 5.0]) + torch.tensor([-2.0, -1.5, 3.0])
+    uv = camera.project_world(K, pose, X)[0] + 0.5 * torch.randn(n, 2, generator=g)
+    out = torch.rand(n, generator=g) < 0.2
+    uv = torch.where(out[:, None], uv + 60.0 * (torch.rand(n, 2, generator=g) - 0.5), uv)
+    valid = torch.rand(n, generator=g) > 0.05
+    tau = torch.randn(6, generator=g) * torch.tensor([0.004] * 3 + [0.01] * 3)
+    return [a.to(device) for a in (K, lie.se3_retract(pose, tau), X, uv, valid)]
+
+
+def eager_pose_opt(args, rounds, iters):
+    """The loop run op by op on the current stream."""
+    n = args[2].shape[0]
+    return pose_opt._lm_loop(*args, torch.ones(n, device=args[2].device), rounds, iters)
+
+
+@pytest.fixture
+def fresh_graphs(monkeypatch):
+    """This thread's graph cache emptied for the test (earlier card tests may
+    have captured the same shapes)."""
+    monkeypatch.setattr(pose_opt._local, "graphs", {}, raising=False)
+
+
+def test_pose_opt_graph_equals_the_eager_loop(dev, fresh_graphs):
+    """N = 1000, a fifth outliers: five successive problems replayed through
+    one captured graph equal the eager loop bit for bit; the first result is
+    not changed by the later calls; 4 x 10 captures a second graph."""
+    c0 = pose_opt.captures
+    timer = StageTimer()
+    first = kept = None
+    for seed in range(5):
+        args = pose_problem(1000, seed, dev)
+        got = pose_opt.pose_optimization(*args, n_rounds=3, n_iters=6, timer=timer)
+        want = eager_pose_opt(args, 3, 6)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert 600 < int(got.n_inliers) < 800
+        if first is None:
+            first, kept = got, [t.clone() for t in got]
+    for a, b in zip(first, kept):
+        assert torch.equal(a, b)
+    assert pose_opt.captures == c0 + 1
+    assert len(timer.samples["pose_opt_graph"]) == 5
+
+    args = pose_problem(1000, 7, dev)
+    got = pose_opt.pose_optimization(*args, n_rounds=4, n_iters=10)
+    for a, b in zip(got, eager_pose_opt(args, 4, 10)):
+        assert torch.equal(a, b)
+    assert pose_opt.captures == c0 + 2
+    assert len(pose_opt._local.graphs) == 2
+
+
+def test_pose_opt_graphs_per_thread_and_stream(dev, fresh_graphs):
+    """Four threads, each on a stream of its own and at once, with the
+    interpreter switching threads every microsecond: each captures its own
+    graph and gets its own problem's answer three times, the last from
+    another stream of the thread without a new capture."""
+    import sys
+
+    n_threads = 4
+    args = [pose_problem(1000, 10 + i, dev) for i in range(n_threads)]
+    want = [eager_pose_opt(a, 3, 6) for a in args]
+    torch.cuda.synchronize()
+    c0 = pose_opt.captures
+    barrier = threading.Barrier(n_threads)
+    out, keys, errors = {}, {}, []
+
+    def work(i):
+        try:
+            s, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                barrier.wait()
+                out[i] = [pose_opt.pose_optimization(*args[i], n_rounds=3, n_iters=6)
+                          for _ in range(2)]
+            s2.wait_stream(s)
+            with torch.cuda.stream(s2):
+                out[i].append(pose_opt.pose_optimization(*args[i], n_rounds=3, n_iters=6))
+            keys[i] = list(pose_opt._local.graphs)
+            s2.synchronize()
+        except BaseException as e:
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    for i in range(n_threads):
+        for res in out[i]:
+            for a, b in zip(res, want[i]):
+                assert torch.equal(a, b)
+        assert len(keys[i]) == 1
+    assert pose_opt.captures == c0 + n_threads
+    assert pose_opt._local.graphs == {}        # the main thread's cache is its own
+
+
+def test_pose_opt_graph_follows_the_algorithm_mode(dev, fresh_graphs):
+    """A call under deterministic algorithms after one under the default
+    ones captures a graph of its own, and each equals the eager loop under
+    its mode; ``prepare`` captures ahead of the first call."""
+    args = pose_problem(1000, 20, dev)
+    was = torch.are_deterministic_algorithms_enabled()
+    c0 = pose_opt.captures
+    try:
+        for mode in (False, True, False):
+            torch.use_deterministic_algorithms(mode, warn_only=True)
+            got = pose_opt.pose_optimization(*args, n_rounds=3, n_iters=6)
+            for a, b in zip(got, eager_pose_opt(args, 3, 6)):
+                assert torch.equal(a, b)
+        assert pose_opt.captures == c0 + 2
+        assert sorted(k[-1] for k in pose_opt._local.graphs) == [False, True]
+        pose_opt.prepare(dev, 500, ((3, 6), (4, 10)))
+        assert pose_opt.captures == c0 + 4
+        small = pose_problem(500, 21, dev)
+        got = pose_opt.pose_optimization(*small, n_rounds=4, n_iters=10)
+        for a, b in zip(got, eager_pose_opt(small, 4, 10)):
+            assert torch.equal(a, b)
+        assert pose_opt.captures == c0 + 4
+    finally:
+        torch.use_deterministic_algorithms(was)

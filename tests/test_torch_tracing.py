@@ -5,19 +5,23 @@ benchmark's readers of those stages on hand-built spans.  Port only."""
 
 import dataclasses
 import threading
+import time
 from unittest import mock
 
 import pytest
 import torch
 
 from rumi_slam_tpu_torch.config import tiny_config
+from rumi_slam_tpu_torch.geometry import camera, lie
 from rumi_slam_tpu_torch.io.synthetic import SyntheticSequence
+from rumi_slam_tpu_torch.optim import pose_opt
 from rumi_slam_tpu_torch.rumination.coordinator import RuminationCoordinator
 from rumi_slam_tpu_torch.system import SlamSystem, TrackState
 from rumi_slam_tpu_torch.tracking import tracker
 from rumi_slam_tpu_torch.utils import profiling
 from rumi_slam_tpu_torch.utils.profiling import StageTimer
 from slam_bench import harness
+from slam_bench.reference import pose_opt as ref_pose_opt
 from slam_bench.trace import StageSpans
 
 NEW_METRICS = ("track_match_ms", "pose_opt_ms", "match_calls_per_frame", "mapping_round_ms",
@@ -99,6 +103,48 @@ def test_stage_helper_without_a_timer_records_nothing():
 
 
 # ---------------------------------------------------------------------------
+# pose optimisation on the CPU: the eager loop, no graph and no graph stage
+# ---------------------------------------------------------------------------
+
+def pose_problem(n, seed):
+    """n points 3-8 m in front of a camera, observed with 0.5 px of noise,
+    a fifth of them moved by up to 30 px (outliers) and 5% invalid; the
+    start pose is the true one perturbed."""
+    g = torch.Generator().manual_seed(seed)
+    K = torch.tensor([260.0, 260.0, 159.5, 119.5])
+    pose = lie.se3_retract(lie.se3_identity(), torch.tensor([0.01, 0.03, -0.02, 0.05, -0.02, 0.03]))
+    X = torch.rand(n, 3, generator=g) * torch.tensor([4.0, 3.0, 5.0]) + torch.tensor([-2.0, -1.5, 3.0])
+    uv = camera.project_world(K, pose, X)[0] + 0.5 * torch.randn(n, 2, generator=g)
+    out = torch.rand(n, generator=g) < 0.2
+    uv = torch.where(out[:, None], uv + 60.0 * (torch.rand(n, 2, generator=g) - 0.5), uv)
+    valid = torch.rand(n, generator=g) > 0.05
+    tau = torch.randn(6, generator=g) * torch.tensor([0.004] * 3 + [0.01] * 3)
+    return K, lie.se3_retract(pose, tau), X, uv, valid
+
+
+@pytest.mark.parametrize("rounds,iters,weighted", [(3, 6, False), (4, 10, False), (3, 6, True)])
+def test_pose_optimization_on_the_cpu_is_the_eager_loop(rounds, iters, weighted):
+    """Bit for bit the frozen pre-graph copy; no graph is captured and no
+    ``pose_opt_graph`` stage opens."""
+    K, pose0, X, uv, valid = pose_problem(300, seed=rounds + 10 * weighted)
+    inv = torch.rand(300, generator=torch.Generator().manual_seed(5)) + 0.5 if weighted else None
+    captures = pose_opt.captures
+    timer = StageTimer()
+    spans = StageSpans(timer).spans
+    res = pose_opt.pose_optimization(K, pose0, X, uv, valid, inv, n_rounds=rounds,
+                                     n_iters=iters, timer=timer)
+    ref = ref_pose_opt.pose_optimization(K, pose0, X, uv, valid, inv, n_rounds=rounds,
+                                         n_iters=iters)
+    for a, b in zip(res, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert pose_opt.captures == captures
+    assert spans == [] and not timer.samples
+    assert getattr(pose_opt._local, "graphs", None) is None
+    # the outliers go, most of the rest stay
+    assert 0.6 * 300 < int(res.n_inliers) < 0.8 * 300
+
+
+# ---------------------------------------------------------------------------
 # the program's stages on a short CPU drive
 # ---------------------------------------------------------------------------
 
@@ -160,6 +206,61 @@ def test_readers_on_the_drive_agree_with_the_track_stage(drive):
     assert got["match_calls_per_frame"] >= 1.0
     assert got["track_match_ms"] + got["pose_opt_ms"] <= track
     assert got["on_frame_ms"] > 0 and got["mapping_round_ms"] > 0
+
+
+def overlapped_drive(round_delay_s):
+    """The 20 tiny frames of ``drive`` with the worker's mapping round held
+    ``round_delay_s`` before it starts: (trajectory poses, keyframe poses,
+    frames at which rounds were submitted, frames at which they were
+    adopted)."""
+    from rumi_slam_tpu_torch.tracking import mapping_worker as MW
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, mapping=dataclasses.replace(cfg.mapping, overlapped=True))
+    seq = SyntheticSequence(n_frames=20, width=320, height=240, n_points=1500, seed=4, patch=3)
+    slam = SlamSystem(cfg, device="cpu")
+    frame, submitted, adopted = [0], [], []
+    submit, apply = slam.mapper.submit, slam._apply_mapping
+
+    def submit_at(*a, **kw):
+        ok = submit(*a, **kw)
+        if ok:
+            submitted.append(frame[0])
+        return ok
+
+    def apply_at(out):
+        adopted.append(frame[0])
+        return apply(out)
+
+    def slow_round(*a, **kw):
+        time.sleep(round_delay_s)
+        return round_fn(*a, **kw)
+
+    round_fn = MW.run_mapping_round
+    slam.mapper.submit, slam._apply_mapping = submit_at, apply_at
+    with mock.patch.object(MW, "run_mapping_round", slow_round):
+        for i in range(len(seq)):
+            frame[0] = i
+            slam.track_monocular(*seq.frame(i))
+        frame[0] = len(seq)
+        slam.sync_mapping()
+    slam.mapper.shutdown()
+    poses = torch.stack([torch.as_tensor(p) for _, p, _, _ in slam.trajectory])
+    return poses, slam.ms.kf_pose[:int(slam.ms.n_kf)], submitted, adopted
+
+
+def test_overlapped_mapping_is_adopted_two_frames_after_its_keyframe():
+    """Each round is adopted at the second frame after its keyframe, whether
+    the worker is quick or slow, so the two drives track the same frames to
+    the same poses."""
+    torch.set_num_threads(1)
+    quick = overlapped_drive(0.0)
+    slow = overlapped_drive(0.4)
+    poses, kf_poses, submitted, adopted = quick
+    assert len(submitted) >= 2
+    assert adopted == [min(k + SlamSystem.ADOPT_AFTER, 20) for k in submitted]
+    assert slow[2:] == quick[2:]
+    assert torch.equal(slow[0], poses) and torch.equal(slow[1], kf_poses)
 
 
 def test_tracking_with_a_timer_gives_the_same_outputs(drive):
@@ -250,6 +351,22 @@ def test_reader_on_hand_built_spans(name, value):
     assert harness.reader("metrics", name).read(hand_run()) == pytest.approx(value, rel=1e-9)
 
 
+def test_pose_opt_graph_share_on_hand_built_spans():
+    """Frame 1's call and the first of frame 2's ran as graphs, frame 2's
+    second did not; the relocalisation's graph and the profiled frame's do
+    not count."""
+    run = hand_run()
+    main = run.main_thread
+    run.spans += [("pose_opt_graph", 1.07, 1.09, main), ("pose_opt_graph", 2.26, 2.28, main),
+                  ("pose_opt_graph", 3.1, 3.4, main), ("pose_opt_graph", 52.11, 52.14, main),
+                  ("pose_opt_graph", 1.3, 1.4, main + 1)]
+    read = harness.reader("metrics", "pose_opt_graph_share").read
+    assert read(run) == pytest.approx(2 / 3, rel=1e-12)
+    assert read(hand_run()) is None            # a program without the stage
+    run.spans = [s for s in run.spans if s[:3] != ("pose_opt_graph", 2.26, 2.28)]
+    assert read(run) == pytest.approx(1 / 3, rel=1e-12)
+
+
 def test_readers_without_the_new_stages_read_nothing():
     """The program before these stages: only the facade's stages."""
     run = hand_run()
@@ -262,9 +379,15 @@ def test_readers_without_the_new_stages_read_nothing():
 def test_new_metrics_are_benchmark_entries():
     bench = harness.benchmark()
     entries = {m["name"]: m for m in bench["per_layer"]}
-    assert [m["name"] for m in bench["per_layer"][-5:]] == list(NEW_METRICS)
+    names = [m["name"] for m in bench["per_layer"]]
+    assert names[names.index(NEW_METRICS[0]):][:len(NEW_METRICS)] == list(NEW_METRICS)
     for name in NEW_METRICS:
         m = entries[name]
         mod = harness.reader("metrics", name)
         assert (mod.LAYER, mod.MOVES) == (m["layer"], m["moves"])
         assert m["source"] == "program_span" and "workloads" not in m
+    m = entries["pose_opt_graph_share"]
+    assert names[-1] == m["name"] and m["layer"] == entries["pose_opt_ms"]["layer"]
+    assert (m["unit"], m["better"], m["source"]) == ("share", "higher", "program_span")
+    assert "euroc-mono-det.sweep" in m["workloads"]
+    assert set(m["workloads"]) <= {w["name"] for w in bench["workloads"]}
