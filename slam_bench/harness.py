@@ -3,7 +3,12 @@ check, and the result line.
 
 A cell (``cells/<name>.json``) names a configuration (``configs/<name>.json``)
 and a traffic mix (``traffic/<name>.json``, read by ``stream.Stream``) and
-states the limits of its checks (``check.py``).  A configuration with
+states the limits of its checks (``check.py``).  A cell with
+``"truth_snapshot": true`` has the truth checks read the program's keyframes
+and points at a fixed frame of the stream, once the mapping rounds of the
+checked stretch's keyframes are adopted (``SlamSystem.ADOPT_AFTER`` frames
+after the stretch), and not when the window closes, after as many rounds as
+the host ran.  A configuration with
 ``"deterministic_algorithms": true`` runs under PyTorch's deterministic
 algorithms (``torch.use_deterministic_algorithms``, warning where an
 operation has no such version) from the system's build to the check.  The
@@ -13,8 +18,9 @@ metric by ``metrics/<name>.py``, a module with ``read(run) -> float | None``
 (None: nothing to read, the metric is left out of the line).
 
 The window drives the deployment's per-frame pair, as
-``rumi_slam_tpu_torch.evaluation.harness.run_once`` does:
-``SlamSystem.track_monocular(frame, t)`` then
+``rumi_slam_tpu_torch.evaluation.harness.run_once`` does: the facade's call
+for the configuration's sensor (``SlamSystem.track_monocular(frame, t)``,
+``track_stereo(frame, right, t)`` or ``track_rgbd(frame, depth, t)``), then
 ``RuminationCoordinator.maybe_ruminate()``, with an ``AsyncRuminationShard``
 on the same card and mapping as ``Config()`` sets it (overlapped, loop
 closing on).  The loop is closed: a frame is handed in when the one before
@@ -78,20 +84,54 @@ def forbidden_modules():
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+SENSORS = ("monocular", "stereo", "rgbd")
+CAMERA_TYPES = {"stereo": ("Rectified",), "rgbd": ("PinHole",)}
+
+
+def sensor_of(c: dict) -> str:
+    sensor = c.get("sensor", "monocular")
+    if sensor not in SENSORS:
+        raise ValueError(f"configuration: sensor {sensor!r} is not one of {SENSORS}")
+    return sensor
+
+
 def build_config(c: dict):
     """The port's ``Config`` from a configuration file's own values (the
-    reference's settings keys); everything else is ``Config()``."""
+    reference's settings keys); everything else is ``Config()``.
+
+    ``"sensor"``: ``"monocular"`` (the default) reads ORB-SLAM2's monocular
+    keys (``Camera.fx`` ... ``Camera.k3``).  ``"stereo"`` and ``"rgbd"`` read
+    ORB-SLAM3's keys for a rectified pair or a pinhole camera
+    (``Camera.type``, ``Camera1.fx/fy/cx/cy``, for RGB-D ``Camera1.k1, k2,
+    p1, p2, k3``), ``Stereo.b`` (m), ``Stereo.ThDepth`` (in baselines, as
+    ORB-SLAM's Tracking reads it: ``th_depth = b * ThDepth`` m) and, for
+    RGB-D, ``RGBD.DepthMapFactor``."""
     from rumi_slam_tpu_torch.config import Config
 
     base = Config()
-    cam = dataclasses.replace(
-        base.camera, fx=float(c["Camera.fx"]), fy=float(c["Camera.fy"]),
-        cx=float(c["Camera.cx"]), cy=float(c["Camera.cy"]),
-        width=int(c["Camera.width"]), height=int(c["Camera.height"]),
-        fps=float(c["Camera.fps"]),
-        k1=float(c.get("Camera.k1", 0.0)), k2=float(c.get("Camera.k2", 0.0)),
-        p1=float(c.get("Camera.p1", 0.0)), p2=float(c.get("Camera.p2", 0.0)),
-        k3=float(c.get("Camera.k3", 0.0)))
+    sensor = sensor_of(c)
+    size = dict(width=int(c["Camera.width"]), height=int(c["Camera.height"]),
+                fps=float(c["Camera.fps"]))
+    if sensor == "monocular":
+        cam = dataclasses.replace(
+            base.camera, fx=float(c["Camera.fx"]), fy=float(c["Camera.fy"]),
+            cx=float(c["Camera.cx"]), cy=float(c["Camera.cy"]), **size,
+            k1=float(c.get("Camera.k1", 0.0)), k2=float(c.get("Camera.k2", 0.0)),
+            p1=float(c.get("Camera.p1", 0.0)), p2=float(c.get("Camera.p2", 0.0)),
+            k3=float(c.get("Camera.k3", 0.0)))
+    else:
+        if c["Camera.type"] not in CAMERA_TYPES[sensor]:
+            raise ValueError(f"configuration: Camera.type {c['Camera.type']!r} for a "
+                             f"{sensor} sensor is not one of {CAMERA_TYPES[sensor]}")
+        rgbd = {}
+        if sensor == "rgbd":
+            rgbd = {k: float(c.get(f"Camera1.{k}", 0.0)) for k in ("k1", "k2", "p1", "p2", "k3")}
+            rgbd["depth_factor"] = float(c["RGBD.DepthMapFactor"])
+        b = float(c["Stereo.b"])
+        cam = dataclasses.replace(
+            base.camera, fx=float(c["Camera1.fx"]), fy=float(c["Camera1.fy"]),
+            cx=float(c["Camera1.cx"]), cy=float(c["Camera1.cy"]), **size, **rgbd,
+            baseline=b, th_depth=b * float(c["Stereo.ThDepth"]))
     orb = dataclasses.replace(
         base.orb, n_features=int(c["ORBextractor.nFeatures"]),
         n_levels=int(c["ORBextractor.nLevels"]),
@@ -190,6 +230,7 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
 
     from rumi_slam_tpu_torch.rumination.coordinator import RuminationCoordinator
     from rumi_slam_tpu_torch.rumination.remote import AsyncRuminationShard
+    from rumi_slam_tpu_torch.ops import stereo
     from rumi_slam_tpu_torch.system import SlamSystem, TrackState
     from rumi_slam_tpu_torch.tracking import tracker
 
@@ -204,6 +245,7 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
     units = {m["name"]: m["unit"] for m in bench["end_to_end"] + bench["per_layer"]}
     conf = cell.get("config_params") or load("configs", cell["config"])
     cfg = build_config(conf)
+    sensor = sensor_of(conf)
     traffic = cell.get("traffic_params") or load("traffic", cell["traffic"])
     seed = int(seed)
     if seed < 0:
@@ -232,7 +274,7 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
                                                     torch.profiler.ProfilerActivity.CUDA]):
                 (a @ a).sum().item()
         torch.cuda.reset_peak_memory_stats()
-    stream = stream_mod.Stream(traffic, cfg.camera, seed, device)
+    stream = stream_mod.Stream(traffic, cfg.camera, seed, device, sensor)
     # the program's algorithms from here on (the bank's maxima repeat anyway)
     torch.use_deterministic_algorithms(deterministic, warn_only=True)
     slam = SlamSystem(cfg, device=device)
@@ -251,7 +293,7 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
 
     shard.submit = submit
     undo = [FAULTS[f](slam) for f in faults]
-    captures = check.Captures(tracker).__enter__()
+    captures = check.Captures(tracker, stereo, sensor).__enter__()
     match_calls = prof = None
     if trace:
         run.spans = trace_mod.StageSpans(slam.timer).spans
@@ -259,12 +301,26 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
         prof = trace_mod.Profiled(cuda)
     samples = check.sample_ordinals(seed)
     bad = (TrackState.RECENTLY_LOST, TrackState.LOST, TrackState.NOT_INITIALIZED)
+    # the stream index after whose frame the truth checks' inputs are read
+    truth_at = (stream.warmup_frames + check.TRUTH_FRAMES + SlamSystem.ADOPT_AFTER - 1
+                if cell.get("truth_snapshot") else None)
+    host = None
 
     failed, attempted, error = 0, 0, None
+    # the facade's call for the sensor, chosen once
+    if sensor == "stereo":
+        def track(k):
+            return slam.track_stereo(stream.frame(k), stream.right(k), stream.time(k))
+    elif sensor == "rgbd":
+        def track(k):
+            return slam.track_rgbd(stream.frame(k), stream.depth(k), stream.time(k))
+    else:
+        def track(k):
+            return slam.track_monocular(stream.frame(k), stream.time(k))
     try:
         def step(k):
             t_in = time.perf_counter()
-            state = slam.track_monocular(stream.frame(k), stream.time(k))
+            state = track(k)
             info = coord.maybe_ruminate()
             return t_in, time.perf_counter(), state, info
 
@@ -298,6 +354,8 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
                 error = traceback.format_exc()
                 break
             run.frames.append((k, t_in, t_out, state.name))
+            if k == truth_at:
+                host = host_state(slam, stream)
             if state in bad:
                 failed += 1
             if info is not None and submits:
@@ -332,7 +390,8 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
     if slam.mapper is not None:
         slam.mapper.shutdown()
     shard.shutdown()
-    host = host_state(slam, stream)
+    if host is None:
+        host = host_state(slam, stream)
     stats = dict(slam.stats)
     if trace and prof.prof is not None:
         run.span = (prof.t0, prof.t1)
@@ -358,10 +417,10 @@ def execute(cell_name, seed, seconds, trace, *, device="cuda", cell=None, faults
                 {"n_bank": stream.n_bank, "loop_from": stream.loop_from, "fps": stream.fps,
                  "warmup": stream.warmup_frames, "stats": stats,
                  "states": [f[3] for f in run.frames]}))
-    readings = {**check.step_readings(captures.kept, stream, cfg.orb, device),
+    readings = {**check.step_readings(captures, stream, cfg, device),
                 **check.truth_readings(host, stream)}
     correct, rows = check.verdict(readings, cell["limits"])
-    low = check.step_readings(captures.kept, stream, cfg.orb, device, low=True) if control else None
+    low = check.step_readings(captures, stream, cfg, device, low=True) if control else None
 
     metrics = {}
     names = layer_names if trace else e2e_names

@@ -29,8 +29,26 @@ distorted before it is splatted (``reference/distortion.py``), so a camera
 with published coefficients sees distorted frames and the program's own
 undistortion is on the path.
 
-The same seed gives the same world, path, bank and truth.  The renderer is
-order-independent (scatter-max), so the frames do not depend on the device.
+The sensor is the configuration's (``harness.build_config``): a monocular
+stream holds the one bank of grey frames.  A stereo stream holds a rectified
+pair instead, both banks through ``render_pair_frame``: the left camera's,
+and the right camera's, ``T_rw = [I | (-b, 0, 0)] T_lw`` with the baseline
+b, the same intrinsics and no distortion.  An RGB-D stream holds the
+monocular grey bank and a uint16 bank of ``round(z * depth_factor)``
+registered to the grey frame's own (distorted, where the camera has
+coefficients) pixels: a pixel holds the depth of the landmark whose splat
+it shows, 0 where it shows none.
+
+``render_frame`` splats at the rounded centre and keeps the brightest splat
+where splats overlap: a disparity read from two such frames is off by up to
+a pixel and can mix two landmarks.  ``render_pair_frame`` renders what a
+camera sees: each splat at its sub-pixel centre (box-filtered coverage,
+bilinear texture) and the nearest splat over the farther ones, so the two
+frames of a pair show each landmark at its own projection.
+
+The same seed gives the same world, path, banks and truth.  Both renderers
+are order-independent (scatter-max and scatter-min), so the banks do not
+depend on the order of the device's sums.
 
 Copied, with the changes named: ``make_world``, ``render_frame`` and
 ``sweep_trajectory`` from ``rumi_slam_tpu_torch/io/synthetic.py`` at commit
@@ -73,9 +91,13 @@ def make_world(n_points, geometry_seed, appearance_seed,
     return World(*(torch.from_numpy(a).to(device) for a in (xyz, inten, size, tex)))
 
 
-def render_frame(world, K, T_cw, *, width, height, patch=4, dist=None):
+def render_frame(world, K, T_cw, *, width, height, patch=4, dist=None, depth_factor=None):
     """One grayscale frame [H, W] float32 by splatting textured squares;
-    with ``dist`` (k1, k2, p1, p2, k3) each centre is distorted first."""
+    with ``dist`` (k1, k2, p1, p2, k3) each centre is distorted first.  With
+    ``depth_factor``, (frame, depth [H, W] uint16): a pixel holds
+    ``round(z * depth_factor)`` of the landmark whose splat sets its value
+    (the brightest, which ``amax`` keeps; of equals the nearest), and 0
+    where no splat reaches the background."""
     uv, depth = camera.project_world(K, T_cw, world.xyz)
     if dist is not None:
         uv = distortion.distort_pixels(K, dist, uv)
@@ -94,7 +116,70 @@ def render_frame(world, K, T_cw, *, width, height, patch=4, dist=None):
             alb = world.tex[:, dy + TEX_R, dx + TEX_R]
             img.scatter_reduce_(0, yy * width + xx, torch.where(inside, inten * alb, 0.0),
                                 "amax", include_self=True)
-    return img.reshape(height, width)
+    if depth_factor is None:
+        return img.reshape(height, width)
+    raw = torch.clamp(torch.round(depth * depth_factor), 1.0, 65535.0)
+    far = torch.full((height * width,), float("inf"), dtype=torch.float32, device=cx.device)
+    for dy in range(-patch, patch + 1):
+        for dx in range(-patch, patch + 1):
+            inside = (abs(dy) <= px) & (abs(dx) <= px)
+            idx = torch.clamp(cy + dy, 0, height - 1) * width + torch.clamp(cx + dx, 0, width - 1)
+            val = torch.where(inside, inten * world.tex[:, dy + TEX_R, dx + TEX_R], 0.0)
+            # the splat this pixel shows gave it its value; the background's 40
+            # is above every splat that is hidden, outside or not in view (0)
+            far.scatter_reduce_(0, idx, torch.where(val >= img[idx], raw, float("inf")),
+                                "amin", include_self=True)
+    d = torch.where(torch.isinf(far), 0.0, far).to(torch.uint16)
+    return img.reshape(height, width), d.reshape(height, width)
+
+
+def render_pair_frame(world, K, T_cw, *, width, height, patch=4):
+    """One grayscale frame [H, W] float32 of a rectified camera (no
+    distortion) as the camera sees the splats: a landmark's square of
+    half-size ``px`` (as ``render_frame`` sizes it) plus half a pixel sits
+    at its projected sub-pixel centre; a pixel takes its coverage of the
+    nearest square that reaches it, with that square's texture sampled
+    bilinearly at the pixel's offset from the centre, over the background's
+    40."""
+    uv, depth = camera.project_world(K, T_cw, world.xyz)
+    px = torch.clamp(world.size * K[0] / torch.clamp_min(depth, 0.3), 1.0, float(patch))
+    vis = ((depth > 0.3) & (uv[:, 0] > -8) & (uv[:, 0] < width + 8)
+           & (uv[:, 1] > -8) & (uv[:, 1] < height + 8))
+    uv = torch.where(vis[:, None], uv, 0.0)
+    off = torch.arange(-patch - 1, patch + 3, device=uv.device, dtype=torch.float32)
+
+    def axis(c, size):
+        """Pixel centres [M, n] near c [M], their coverage, the texture's
+        lower index and weight of the upper one, and whether in the image."""
+        x = torch.floor(c)[:, None] + off
+        cover = torch.clamp(torch.minimum(x + 0.5, (c + px + 0.5)[:, None])
+                            - torch.maximum(x - 0.5, (c - px - 0.5)[:, None]), 0.0, 1.0)
+        rel = x - c[:, None]
+        lo = torch.floor(rel)
+        idx = torch.clamp(lo.to(torch.int64) + TEX_R, 0, 2 * TEX_R - 1)
+        return x.to(torch.int64), cover, idx, rel - lo, (x >= 0) & (x < size)
+
+    xs, cov_x, tx, wx, in_x = axis(uv[:, 0], width)
+    ys, cov_y, ty, wy, in_y = axis(uv[:, 1], height)
+    m = torch.arange(len(px), device=uv.device)[:, None, None]
+    iy, ix = ty[:, :, None], tx[:, None, :]
+    fy, fx = wy[:, :, None], wx[:, None, :]
+    tex = world.tex
+    alb = ((1 - fy) * ((1 - fx) * tex[m, iy, ix] + fx * tex[m, iy, ix + 1])
+           + fy * ((1 - fx) * tex[m, iy + 1, ix] + fx * tex[m, iy + 1, ix + 1]))
+    cover = cov_y[:, :, None] * cov_x[:, None, :]
+    shown = vis[:, None, None] & (cover > 0) & in_y[:, :, None] & in_x[:, None, :]
+    n_pix = height * width
+    idx = torch.where(shown, ys[:, :, None] * width + xs[:, None, :], n_pix).reshape(-1)
+    z = torch.where(shown, depth[:, None, None], float("inf")).reshape(-1)
+    near = torch.full((n_pix + 1,), float("inf"), device=uv.device)
+    near.scatter_reduce_(0, idx, z, "amin", include_self=True)
+    val = cover * world.intensity[:, None, None] * alb + (1 - cover) * 40.0
+    win = shown.reshape(-1) & (z == near[idx])
+    img = torch.full((n_pix + 1,), -1.0, device=uv.device)
+    img.scatter_reduce_(0, idx, torch.where(win, val.reshape(-1), -1.0), "amax",
+                        include_self=True)
+    return torch.where(img[:n_pix] < 0, 40.0, img[:n_pix]).reshape(height, width)
 
 
 def sweep_trajectory(n_frames, fps, *, seed, amp, yaw_amp):
@@ -124,13 +209,16 @@ class Stream:
     """Frames, timestamps and truth of one run.
 
     ``frame(k)``: the bank's uint8 [H, W] frame for stream index k (a view,
-    no copy, no rendering); ``time(k)`` = k / fps; ``pose(k)``: the true
-    world->camera pose [7] (numpy); ``landmarks``: [M, 3] numpy; ``K`` and
-    ``dist`` (None for a pinhole): the camera it was rendered through.
+    no copy, no rendering); ``right(k)`` (stereo): the right camera's uint8
+    frame; ``depth(k)`` (RGB-D): the registered uint16 depth; ``time(k)`` =
+    k / fps; ``pose(k)``: the true world->(left) camera pose [7] (numpy);
+    ``landmarks``: [M, 3] numpy; ``K`` and ``dist`` (None for a pinhole):
+    the camera it was rendered through.
     """
 
-    def __init__(self, traffic: dict, camera_cfg, seed: int, device):
+    def __init__(self, traffic: dict, camera_cfg, seed: int, device, sensor="monocular"):
         c = camera_cfg
+        self.sensor = sensor
         self.fps = float(c.fps)
         self.width, self.height = int(c.width), int(c.height)
         self.warmup_frames = int(round(traffic["warmup_s"] * self.fps))
@@ -153,11 +241,33 @@ class Stream:
         dist = (torch.tensor(coeffs, dtype=torch.float32, device=device)
                 if any(coeffs) else None)
         self.K, self.dist = K, dist
-        self.bank = torch.empty((n, self.height, self.width), dtype=torch.uint8, device=device)
+        shape = (n, self.height, self.width)
+        self.bank = torch.empty(shape, dtype=torch.uint8, device=device)
+        self.bank_r = self.bank_d = None
+        if sensor == "stereo":
+            self.bank_r = torch.empty(shape, dtype=torch.uint8, device=device)
+            to_right = torch.tensor([0, 0, 0, 0, -float(c.baseline), 0, 0], device=device)
+        elif sensor == "rgbd":
+            self.bank_d = torch.empty(shape, dtype=torch.uint16, device=device)
+        elif sensor != "monocular":
+            raise ValueError(f"unknown sensor {sensor!r}")
+        size = dict(width=self.width, height=self.height, patch=patch)
+
+        def grey(img):
+            return torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
+
         for i in range(n):
-            img = render_frame(world, K, poses_dev[i], width=self.width, height=self.height,
-                               patch=patch, dist=dist)
-            self.bank[i] = torch.clamp(torch.round(img), 0, 255).to(torch.uint8)
+            if self.bank_r is not None:
+                self.bank[i] = grey(render_pair_frame(world, K, poses_dev[i], **size))
+                # a rotation-free translation composed on the left: T_rw = T_rl T_lw
+                self.bank_r[i] = grey(render_pair_frame(world, K, poses_dev[i] + to_right,
+                                                        **size))
+            elif self.bank_d is not None:
+                img, self.bank_d[i] = render_frame(world, K, poses_dev[i], dist=dist,
+                                                   depth_factor=float(c.depth_factor), **size)
+                self.bank[i] = grey(img)
+            else:
+                self.bank[i] = grey(render_frame(world, K, poses_dev[i], dist=dist, **size))
 
     def bank_index(self, k: int) -> int:
         n, lo = self.n_bank, self.loop_from
@@ -169,6 +279,12 @@ class Stream:
 
     def frame(self, k: int):
         return self.bank[self.bank_index(k)]
+
+    def right(self, k: int):
+        return self.bank_r[self.bank_index(k)]
+
+    def depth(self, k: int):
+        return self.bank_d[self.bank_index(k)]
 
     def time(self, k: int) -> float:
         return k / self.fps

@@ -90,7 +90,9 @@ def test_benchmark_entries_resolve_to_their_files():
                                                                     w["chips"])
         assert w["config"] in configs and w["chips"] == 1
         stream.load_traffic(w["traffic"])
-        assert set(cell["limits"]) == set(STEP) | set(TRUTH)
+        sensor = harness.sensor_of(harness.load("configs", w["config"]))
+        extra = {"monocular": set(), "stereo": {"stereo_differ"}, "rgbd": {"rgbd_depth_differ"}}
+        assert set(cell["limits"]) == set(STEP) | set(TRUTH) | extra[sensor]
         used.add(w["config"])
         assert len(w["why"]) <= 200
     assert used == set(configs)
